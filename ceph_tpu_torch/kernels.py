@@ -34,10 +34,13 @@ BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: Threads per blob in crc32c.cu (its kThreads); fixes the segment length.
-CRC_THREADS = 256
-#: log2(CRC_THREADS): the number of join levels, one Z operator each.
+#: Rows (blob segments) a crc32c.cu block takes at once (its kThreads):
+#: the most rows one blob is cut into.
+CRC_ROWS = 256
+#: log2(CRC_ROWS): the most join levels, one Z operator each.
 CRC_LEVELS = 8
+#: Most words per segment in crc32c.cu (its kMaxSeg): 64 KiB of B operand.
+CRC_MAX_SEG = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,7 +137,7 @@ class Kernel:
 GF_MATMUL = Kernel("gf_matmul", "gf_matmul.cu", "gf_matmul_launch",
                    [_P, _P, _P, _I, _I, _I, _L, _P])
 CRC32C = Kernel("crc32c", "crc32c.cu", "crc32c_launch",
-                [_P, _P, _P, _P, _L, _L, _L, _P])
+                [_P, _I, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _P])
 KERNELS = (GF_MATMUL, CRC32C)
 
 
@@ -172,43 +175,52 @@ def _check_words(t: torch.Tensor, ndim: int, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def gf_matmul(x: torch.Tensor, consts: torch.Tensor, rows: int) -> torch.Tensor:
-    """x (B, C, W) int32 words on the card, consts (rows, C, 8) int32 SWAR
-    constants -> (B, rows, W) int32: the GF(2^8) product, on the kernel."""
+def gf_matmul(x: torch.Tensor, frags: torch.Tensor, rows: int) -> torch.Tensor:
+    """x (B, C, W) int32 words on the card, frags the kernel's B operand
+    (ceil(rows/4), ceil(C/8), 16, 32, 2) int32 (ops/rs.py b1_fragments) ->
+    (B, rows, W) int32: the GF(2^8) product, on the kernel."""
     _check_words(x, 3, "x")
-    _check_words(consts, 3, "consts")
+    _check_words(frags, 5, "frags")
     b, cols, w = x.shape
-    if tuple(consts.shape) != (rows, cols, 8) or consts.device != x.device:
-        raise ValueError(f"consts {tuple(consts.shape)} on {consts.device} "
-                         f"do not fit x {tuple(x.shape)} on {x.device}")
+    want = (-(-rows // 4), -(-cols // 8), 16, 32, 2)
+    if tuple(frags.shape) != want or frags.device != x.device:
+        raise ValueError(f"frags {tuple(frags.shape)} on {frags.device} do "
+                         f"not fit x {tuple(x.shape)} on {x.device} and "
+                         f"{rows} rows")
     out = torch.empty((b, rows, w), dtype=torch.int32, device=x.device)
-    GF_MATMUL.launch(x.device, x.data_ptr(), out.data_ptr(), consts.data_ptr(),
+    GF_MATMUL.launch(x.device, x.data_ptr(), out.data_ptr(), frags.data_ptr(),
                      b, rows, cols, w)
     return out
 
 
-def crc_segment_words(w: int) -> int:
-    """Words per thread segment in crc32c.cu for a blob of ``w`` words."""
-    return -(-w // CRC_THREADS)
-
-
-def crc32c(words: torch.Tensor, tables: torch.Tensor,
-           zcols: torch.Tensor) -> torch.Tensor:
-    """words (N, W) int32 on the card -> (N,) int32 seed-0 CRC32Cs, on the
-    kernel. ``tables`` is (4, 256) slicing-by-4, ``zcols`` (CRC_LEVELS, 32)
-    the join operators for this W (ops/crc32c.py builds both)."""
-    _check_words(words, 2, "words")
-    _check_words(tables, 2, "tables")
+def crc32c(src0: torch.Tensor, src1: torch.Tensor | None, frags: torch.Tensor,
+           zcols: torch.Tensor, seg: int, subs: int,
+           log_nseg: int) -> torch.Tensor:
+    """Seed-0 CRC32Cs of the cells of src0 (B, r0, W) and, if given, src1
+    (B, r1, W), int32 on the card, read where they lie -> (B, r0 + r1)
+    int32, on the kernel. ``frags`` (seg/32, 4, 4, 32, 2) and ``zcols``
+    (CRC_LEVELS + 1, 32) come from ops/crc32c.py for this W and cut."""
+    _check_words(src0, 3, "src0")
+    if src1 is not None:
+        _check_words(src1, 3, "src1")
+        if (src1.shape[0] != src0.shape[0] or src1.shape[2] != src0.shape[2]
+                or src1.device != src0.device):
+            raise ValueError(f"src1 {tuple(src1.shape)} on {src1.device} does "
+                             f"not pair with src0 {tuple(src0.shape)} on "
+                             f"{src0.device}")
+    _check_words(frags, 5, "frags")
     _check_words(zcols, 2, "zcols")
-    n, w = words.shape
-    if w < 1:
-        raise ValueError("blobs must hold at least one word")
-    if (tuple(tables.shape) != (4, 256)
-            or tuple(zcols.shape) != (CRC_LEVELS, 32)
-            or tables.device != words.device or zcols.device != words.device):
-        raise ValueError("CRC tables do not fit the kernel")
-    out = torch.empty((n,), dtype=torch.int32, device=words.device)
-    CRC32C.launch(words.device, words.data_ptr(), out.data_ptr(),
-                  tables.data_ptr(), zcols.data_ptr(), n, w,
-                  crc_segment_words(w))
+    b, r0, w = src0.shape
+    r1 = 0 if src1 is None else src1.shape[1]
+    if w < 1 or r0 < 1:
+        raise ValueError(f"src0 {tuple(src0.shape)} holds no cell words")
+    if (tuple(frags.shape) != (seg // 32, 4, 4, 32, 2)
+            or tuple(zcols.shape) != (CRC_LEVELS + 1, 32)
+            or frags.device != src0.device or zcols.device != src0.device):
+        raise ValueError("CRC operands do not fit the kernel")
+    out = torch.empty((b, r0 + r1), dtype=torch.int32, device=src0.device)
+    CRC32C.launch(src0.device, src0.data_ptr(), r0,
+                  None if src1 is None else src1.data_ptr(), r1, b, w,
+                  out.data_ptr(), frags.data_ptr(), zcols.data_ptr(), seg,
+                  subs, log_nseg)
     return out

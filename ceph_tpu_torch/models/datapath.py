@@ -54,14 +54,22 @@ def write_step(params: ECParams, data: torch.Tensor):
     return rs.encode_with_crcs(params.matrix, params.chunk_bytes, data)
 
 
+@functools.lru_cache(maxsize=1024)
+def _recovery_matrix(params: ECParams, present: tuple[int, ...]) -> np.ndarray:
+    """The k x k recovery matrix of one erasure pattern, inverted on the
+    host once per (params, present) rather than on every step."""
+    rmat = gf8.decode_matrix(params.matrix, params.k, list(present))
+    rmat.setflags(write=False)
+    return rmat
+
+
 def repair_step(params: ECParams, present: tuple[int, ...],
                 surviving: torch.Tensor):
     """surviving (B, k, W) int32 (rows in ``present`` order) -> (data
     (B, k, W), crcs (B, k)). The decode matrix is built on the host from
-    the erasure pattern (tiny k x k inversion); the bulk math is the same
-    kernel as encode."""
-    rmat = gf8.decode_matrix(params.matrix, params.k, list(present))
-    data = rs.gf_matmul(rmat, surviving)
+    the erasure pattern (tiny k x k inversion, cached per pattern); the
+    bulk math is the same kernel as encode."""
+    data = rs.gf_matmul(_recovery_matrix(params, tuple(present)), surviving)
     return data, crc_ops.crc32c_cells_device(data, params.chunk_bytes)
 
 

@@ -9,12 +9,15 @@ CRC is linear over GF(2), so
   crc(R)``, where Z_n (append n zero bytes) is a constant 32x32 GF(2)
   matrix.
 
-``crc0_words`` is the seed-0 CRC of each blob. On a CUDA tensor it launches
-``csrc/crc32c.cu`` (table-driven segments joined by Z operators); on a CPU
-tensor it runs the plain torch version of the JAX tree fold
-(``crc0_words_plain``): per-word columns, then a log2(W)-level pairwise
-tree. Both treat a word count that is not a power of two as front-padded
-with zero words (leading zeros are no-ops from state 0).
+``crc0_words`` is the seed-0 CRC of each blob, ``crc0_cells`` that of the
+cells of two batches (data and parity) read where they lie. On a CUDA
+tensor they launch ``csrc/crc32c.cu``: segment CRCs as one GF(2) product
+on the binary tensor cores, with the B operand ``b1_fragments`` built
+here, joined by Z operators. On a CPU tensor they run the plain torch
+version of the JAX tree fold (``crc0_words_plain``): per-word columns,
+then a log2(W)-level pairwise tree. Both treat a word count that does not
+fill their cut as front-padded with zero words (leading zeros are no-ops
+from state 0).
 
 Seeds fold in on the host: crc(seed, blob) = Z_len(seed) ^ crc0(blob), with
 ``len`` the TRUE byte length of the blob, never the padded one.
@@ -191,29 +194,94 @@ def crc0_words_plain(words: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------- the kernel
 
 
+def crc_plan(w: int) -> tuple[int, int, int]:
+    """How csrc/crc32c.cu cuts a blob of ``w`` words: (seg, subs, nseg).
+
+    A blob is nseg rows (a power of two, at most CRC_ROWS); a row is subs
+    segments of seg words (a multiple of 32, at most CRC_MAX_SEG), the
+    unit of one B operand. nseg * subs * seg >= w; the rest is front
+    padding. Rows are made as long as CRC_MAX_SEG words before a blob is
+    cut into more of them: a block's loads then run longer between its
+    joins, and short blobs share a block."""
+    if w < 1:
+        raise ValueError("blobs must hold at least one word")
+    rows = -(-w // kernels.CRC_MAX_SEG)
+    nseg = min(kernels.CRC_ROWS, 1 << (rows - 1).bit_length())
+    per_row = -(-w // nseg)
+    seg = min(kernels.CRC_MAX_SEG, -(-per_row // 32) * 32)
+    return seg, -(-per_row // seg), nseg
+
+
 @functools.lru_cache(maxsize=None)
-def _slice_tables() -> np.ndarray:
-    """(4, 256) slicing-by-4 tables: T[k][i] is byte i followed by k zero
-    bytes, from state 0."""
-    t = np.zeros((4, 256), dtype=np.uint32)
-    t[0] = _table()
-    for k in range(1, 4):
-        t[k] = (t[k - 1] >> np.uint32(8)) ^ t[0][t[k - 1] & np.uint32(0xFF)]
-    return t
+def segment_columns(seg: int) -> np.ndarray:
+    """(seg, 32) uint32: row i holds the 32 columns Z_{4(seg-1-i)}(A_b),
+    the crc0 contribution of bit b of word i of a seg-word segment (the
+    JAX package's ``_crc_bitmatrix`` for one segment)."""
+    z4 = _zeros_op_columns(4)
+    cols = np.zeros((seg, 32), dtype=np.uint32)
+    cols[seg - 1] = _word_columns()
+    for i in range(seg - 2, -1, -1):
+        cols[i] = _compose(z4, cols[i + 1])
+    return cols
 
 
-def _join_columns(w: int) -> np.ndarray:
-    """(CRC_LEVELS, 32) columns of Z_{4*S*2^level}: the operators that join
-    the kernel's segment CRCs for a blob of ``w`` words."""
-    seg_bytes = 4 * kernels.crc_segment_words(w)
-    return np.stack([_zeros_cols(seg_bytes << level)
-                     for level in range(kernels.CRC_LEVELS)])
+@functools.lru_cache(maxsize=None)
+def b1_fragments(seg: int) -> np.ndarray:
+    """The B operand of csrc/crc32c.cu for seg-word segments:
+    (seg/32, 4, 4, 32, 2) uint32 indexed [chunk ch, K-step kk, n-tile j,
+    lane 4n+t, half h], bit b of each word.
+
+    K: (ch, kk, h, t, b) is bit b of word 32ch + 8t + 4h + kk of the
+    segment (each lane loads words 8t..8t+7 of a chunk as two 16 B loads).
+    N: column n of n-tile j is crc bit 8(n >> 1) + 2j + (n & 1)."""
+    cols = segment_columns(seg)
+    ch = np.arange(seg // 32).reshape(-1, 1, 1, 1, 1, 1, 1)
+    kk = np.arange(4).reshape(1, -1, 1, 1, 1, 1, 1)
+    j = np.arange(4).reshape(1, 1, -1, 1, 1, 1, 1)
+    n = np.arange(8).reshape(1, 1, 1, -1, 1, 1, 1)
+    t = np.arange(4).reshape(1, 1, 1, 1, -1, 1, 1)
+    h = np.arange(2).reshape(1, 1, 1, 1, 1, -1, 1)
+    b = np.arange(32).reshape(1, 1, 1, 1, 1, 1, -1)
+    word = 32 * ch + 8 * t + 4 * h + kk
+    out_bit = 8 * (n >> 1) + 2 * j + (n & 1)
+    bits = (cols[word, b].astype(np.uint64) >> out_bit.astype(np.uint64)) & 1
+    words = (bits << b.astype(np.uint64)).sum(axis=-1, dtype=np.uint64)
+    return words.astype(np.uint32).reshape(seg // 32, 4, 4, 32, 2)
+
+
+def join_columns(w: int) -> np.ndarray:
+    """(CRC_LEVELS + 1, 32) join operators of csrc/crc32c.cu for a blob of
+    ``w`` words: Z_{4 seg} (segments within a row), then Z_{4 seg subs
+    2^l} for the tree levels l = 0..CRC_LEVELS-1."""
+    seg, subs, _ = crc_plan(w)
+    row_bytes = 4 * seg * subs
+    return np.stack([_zeros_cols(4 * seg)]
+                    + [_zeros_cols(row_bytes << level)
+                       for level in range(kernels.CRC_LEVELS)])
 
 
 @functools.lru_cache(maxsize=256)
 def _kernel_constants(w: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    return (words_to_tensor(_slice_tables(), device),
-            words_to_tensor(_join_columns(w), device))
+    seg = crc_plan(w)[0]
+    return (words_to_tensor(b1_fragments(seg), device),
+            words_to_tensor(join_columns(w), device))
+
+
+def _crc_kernel(src0: torch.Tensor, src1: torch.Tensor | None) -> torch.Tensor:
+    """The kernel over (B, r0, W) and optional (B, r1, W) cells where they
+    lie -> (B, r0 + r1) seed-0 CRCs."""
+    w = src0.shape[-1]
+    frags, zcols = _kernel_constants(w, str(src0.device))
+    seg, subs, nseg = crc_plan(w)
+    return kernels.crc32c(src0, src1, frags, zcols, seg, subs,
+                          nseg.bit_length() - 1)
+
+
+def _check_words(words: torch.Tensor) -> None:
+    if words.dtype != torch.int32:
+        raise TypeError(f"words must be int32 packed words, got {words.dtype}")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no CRC32C kernel for device {words.device}")
 
 
 def crc0_words(words: torch.Tensor) -> torch.Tensor:
@@ -221,16 +289,36 @@ def crc0_words(words: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes through the CUDA kernel, a CPU tensor through
     ``crc0_words_plain``. Any W >= 1."""
-    if words.dtype != torch.int32:
-        raise TypeError(f"words must be int32 packed words, got {words.dtype}")
+    _check_words(words)
     if words.device.type == "cpu":
         return crc0_words_plain(words)
-    if words.device.type != "cuda":
-        raise ValueError(f"no CRC32C kernel for device {words.device}")
     lead, w = words.shape[:-1], words.shape[-1]
-    tables, zcols = _kernel_constants(w, str(words.device))
-    out = kernels.crc32c(words.reshape(-1, w).contiguous(), tables, zcols)
+    out = _crc_kernel(words.reshape(-1, 1, w).contiguous(), None)
     return out.reshape(lead)
+
+
+def crc0_cells(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
+    """Seed-0 CRC32C of the cells of two batches read where they lie:
+    data (..., k, W) and parity (..., m, W) int32 -> (..., k+m), the data
+    cells' CRCs then the parity cells' (what the CRCs of their
+    concatenation along -2 would be, with no copy made)."""
+    _check_words(data)
+    _check_words(parity)
+    if (data.dim() < 2 or data.shape[:-2] != parity.shape[:-2]
+            or data.shape[-1] != parity.shape[-1]
+            or data.device != parity.device):
+        raise ValueError(f"cells {tuple(data.shape)} on {data.device} and "
+                         f"{tuple(parity.shape)} on {parity.device} do not "
+                         "pair up")
+    lead, k, w = data.shape[:-2], data.shape[-2], data.shape[-1]
+    if data.device.type == "cpu":
+        out = data.new_empty(lead + (k + parity.shape[-2],))
+        out[..., :k] = crc0_words_plain(data)
+        out[..., k:] = crc0_words_plain(parity)
+        return out
+    out = _crc_kernel(data.reshape(-1, k, w).contiguous(),
+                      parity.reshape(-1, parity.shape[-2], w).contiguous())
+    return out.reshape(lead + (out.shape[-1],))
 
 
 def crc32c_batch(blobs: np.ndarray, seed: int = CRC_SEED,
@@ -249,8 +337,14 @@ def crc32c_words_device(words: torch.Tensor, seed_shifted: int) -> torch.Tensor:
     return crc0_words(words) ^ i32(seed_shifted)
 
 
-def crc32c_cells_device(cells: torch.Tensor, cell_bytes: int) -> torch.Tensor:
+def crc32c_cells_device(cells: torch.Tensor, cell_bytes: int,
+                        parity: torch.Tensor | None = None) -> torch.Tensor:
     """Per-cell CRC32C (standard seed) of (..., W) int32 cells with ANY
     word count. ``cell_bytes`` is the true cell length (4 * W): the seed
-    folds with it, not with a padded length."""
-    return crc32c_words_device(cells, zeros_shift(CRC_SEED, cell_bytes))
+    folds with it, not with a padded length. With ``parity`` the cells are
+    two batches, (..., k, W) and (..., m, W), read where they lie, and the
+    result is (..., k+m) (``crc0_cells``)."""
+    seed = i32(zeros_shift(CRC_SEED, cell_bytes))
+    if parity is None:
+        return crc0_words(cells) ^ seed
+    return crc0_cells(cells, parity) ^ seed

@@ -7,13 +7,19 @@ A GF(2^8) multiply by a constant coefficient c is linear over GF(2), so
 With four bytes packed per uint32 word (SWAR), ``bit_b`` of all four bytes
 is ``(x >> b) & 0x01010101`` and the per-byte multiply by the constant
 byte ``mul(c, 1 << b) < 256`` is an ordinary integer multiply with no
-carries between bytes: integer-only and bit-exact by construction.
+carries between bytes: integer-only and bit-exact by construction. That is
+``gf_matmul_plain``, the plain version (the JAX package's
+``gf_matmul_u32``).
 
-``gf_matmul`` computes ``(..., C, W) -> (..., R, W)``. On a CUDA tensor it
-launches ``csrc/gf_matmul.cu`` with per-matrix constants kept on the card
-(cached by matrix bytes); on a CPU tensor it runs ``gf_matmul_plain``, the
-same SWAR algebra in torch ops (the JAX package's ``gf_matmul_u32``). The
-device of the tensor decides the path.
+The same linearity makes every output bit a GF(2) inner product of the
+input bits with a row of the lifted bit-matrix (``lift_bitmatrix``, the JAX
+package's ``_lift_bitmatrix``). ``csrc/gf_matmul.cu`` computes those on the
+binary tensor cores; ``b1_fragments`` lays the lifted matrix out as the
+kernel's B operand (cached per matrix on the card).
+
+``gf_matmul`` computes ``(..., C, W) -> (..., R, W)``: the kernel for a
+CUDA tensor, the plain version for a CPU one. The device of the tensor
+decides the path.
 
 Decode = host-side inversion of the surviving-rows generator submatrix
 (ops/gf8.py) + the same kernel with the recovery matrix.
@@ -34,24 +40,62 @@ from . import crc32c as crc_ops
 from . import gf8
 
 
-def swar_constants(matrix: np.ndarray) -> np.ndarray:
-    """(R, C) GF matrix -> (R, C, 8) uint32, mc[r, c, b] = mul(M[r, c], 1 << b)."""
+def lift_bitmatrix(matrix: np.ndarray) -> np.ndarray:
+    """(R, C) GF(2^8) matrix -> (8R, 8C) GF(2) bit-matrix, uint8: column
+    8c+j of block row r holds the bits of M[r, c] * x^j, so out_bit[8r+i]
+    = XOR_{c, j} BM[8r+i, 8c+j] * in_bit[8c+j] (the JAX package's
+    ``_lift_bitmatrix``)."""
     rows, cols = matrix.shape
-    mc = np.zeros((rows, cols, 8), dtype=np.uint32)
+    out = np.zeros((rows * 8, cols * 8), dtype=np.uint8)
     for r in range(rows):
         for c in range(cols):
-            for b in range(8):
-                mc[r, c, b] = gf8.gf_mul(int(matrix[r, c]), 1 << b)
-    return mc
+            v = int(matrix[r, c])
+            for j in range(8):
+                for i in range(8):
+                    out[r * 8 + i, c * 8 + j] = (v >> i) & 1
+                v = gf8.gf_mul(v, 2)
+    return out
+
+
+def b1_fragments(matrix: np.ndarray) -> np.ndarray:
+    """The B operand of csrc/gf_matmul.cu for an (R, C) GF(2^8) matrix:
+    (ceil(R/4), ceil(C/8), 16, 32, 2) uint32, indexed [quad q, K-step k,
+    n-tile j, lane 4n+t, half h], bit b of each word.
+
+    K: (k, h, t, b) is bit b of input word c = 8k + 4h + t (raw words, all
+    four bytes). N: column n of n-tile j is output row r = 4q + (n >> 1),
+    output bit 2j + (n & 1). The bit is set when input and output bits lie
+    in the same byte lane p and BM[8r + i, 8c + j'] is set (i, j' the bit
+    within the byte): the lifted matrix, block-diagonal over byte lanes."""
+    rows, cols = matrix.shape
+    quads, ksteps = -(-rows // 4), -(-cols // 8)
+    bm = np.zeros((quads * 32, ksteps * 64), dtype=np.uint8)
+    bm[:rows * 8, :cols * 8] = lift_bitmatrix(matrix)
+    k = np.arange(ksteps).reshape(-1, 1, 1, 1, 1, 1)
+    j = np.arange(16).reshape(1, -1, 1, 1, 1, 1)
+    n = np.arange(8).reshape(1, 1, -1, 1, 1, 1)
+    t = np.arange(4).reshape(1, 1, 1, -1, 1, 1)
+    h = np.arange(2).reshape(1, 1, 1, 1, -1, 1)
+    b = np.arange(32).reshape(1, 1, 1, 1, 1, -1)
+    out_bit = 2 * j + (n & 1)
+    c = 8 * k + 4 * h + t
+    words = np.zeros((quads, ksteps, 16, 8, 4, 2), dtype=np.uint64)
+    for q in range(quads):  # one quad at a time bounds the temporaries
+        r = 4 * q + (n >> 1)
+        bits = np.where((out_bit >> 3) == (b >> 3),
+                        bm[8 * r + (out_bit & 7), 8 * c + (b & 7)], 0)
+        words[q] = (bits.astype(np.uint64) << b.astype(np.uint64)).sum(
+            axis=-1, dtype=np.uint64)
+    return words.astype(np.uint32).reshape(quads, ksteps, 16, 32, 2)
 
 
 # Sized above the erasure-pattern count for supported k+m (C(11,8)=165
 # recovery matrices for k=8,m=3 before present-orderings).
 @functools.lru_cache(maxsize=4096)
-def _device_constants(matrix_bytes: bytes, rows: int, cols: int,
+def _device_fragments(matrix_bytes: bytes, rows: int, cols: int,
                       device: str) -> torch.Tensor:
     matrix = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(rows, cols)
-    return words_to_tensor(swar_constants(matrix), device)
+    return words_to_tensor(b1_fragments(matrix), device)
 
 
 def _check(matrix: np.ndarray, chunks: torch.Tensor) -> np.ndarray:
@@ -113,8 +157,8 @@ def gf_matmul(matrix: np.ndarray, chunks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no GF matmul kernel for device {chunks.device}")
     rows, cols = matrix.shape
     lead, w = chunks.shape[:-2], chunks.shape[-1]
-    consts = _device_constants(matrix.tobytes(), rows, cols, str(chunks.device))
-    out = kernels.gf_matmul(chunks.reshape(-1, cols, w).contiguous(), consts,
+    frags = _device_fragments(matrix.tobytes(), rows, cols, str(chunks.device))
+    out = kernels.gf_matmul(chunks.reshape(-1, cols, w).contiguous(), frags,
                             rows)
     return out.reshape(*lead, rows, w)
 
@@ -128,10 +172,10 @@ def encode_with_crcs(matrix: np.ndarray, cell_bytes: int,
                      data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode + per-cell checksum: data (..., k, W) int32 -> (parity
     (..., m, W), crcs (..., k+m)), the CRC32Cs of the data cells then the
-    parity cells (the hash_info the EC backend persists per shard)."""
+    parity cells (the hash_info the EC backend persists per shard). The
+    CRC reads data and parity where they lie: nothing is copied."""
     parity = gf_matmul(matrix, data)
-    cells = torch.cat([data, parity], dim=-2)
-    return parity, crc_ops.crc32c_cells_device(cells, cell_bytes)
+    return parity, crc_ops.crc32c_cells_device(data, cell_bytes, parity)
 
 
 def decode(matrix: np.ndarray, k: int, present: list[int],

@@ -9,8 +9,10 @@ functions are integer-only), drives the main path at full width -- the
 batched EC write and repair steps on k=8, m=3, 512 KiB chunks (4 MiB
 stripes), B=256 stripes (1 GiB) per step, the rs_tpu codec and the
 crc32c Checksummer over 16,384 x 64 KiB blobs -- and checks the results,
-shows that the main path launched both kernels, and times each kernel, its
-plain version and each step with CUDA events.
+shows that the main path launched both kernels, times each kernel at the
+write, repair and Checksummer shapes, its plain version and each step with
+CUDA events, and checks from a torch.profiler trace that the write step
+(which CRCs data and parity where they lie) launches no copy kernel.
 
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
@@ -153,8 +155,10 @@ def main() -> int:
 
     # ---- phase 2: build both kernels (one nvcc each, started together)
     secs = kernels.build_all()
-    ptxas = [ln.strip() for k in kernels.KERNELS
-             for ln in k.build_log.splitlines() if "Used" in ln or "spill" in ln]
+    ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
+                      if "entry function" in ln or "Used" in ln
+                      or "spill" in ln]
+             for k in kernels.KERNELS}
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
 
     rng = np.random.default_rng(20261016)
@@ -165,9 +169,13 @@ def main() -> int:
 
     # ---- phase 3: each kernel against its plain version, on the card
     gf_cases = []
-    # (16, 240): constants too large for shared memory, read from HBM
+    # C > 8 runs several K-steps, C > 32 several 256-bit ones past the
+    # first fragment block; (16, 240) and (256, 256): B fragments too large
+    # for shared memory, read from HBM; W = 1 and W % 4 != 0 take 4 B loads
     for i, (r, c, w) in enumerate([(3, 8, 131072), (8, 8, 4096), (1, 2, 1),
-                                   (2, 5, 1000), (4, 6, 384), (16, 240, 100)]):
+                                   (2, 5, 1000), (4, 6, 384), (16, 240, 100),
+                                   (3, 8, 1), (16, 40, 1000), (4, 240, 257),
+                                   (8, 8, 6), (256, 256, 9)]):
         mat = rng.integers(0, 256, (r, c), dtype=np.uint8)
         gf_cases.append((f"random{r}x{c}", mat, 1 + i % 3, w))
     van = gf8.vandermonde_rs_matrix(MAIN_K, MAIN_M)
@@ -192,19 +200,29 @@ def main() -> int:
                       rs.gf_matmul_plain(van[:, :5], view)),
           "gf_matmul on a strided view")
     crc_cases = [(70000, 1), (70000, 3), (70000, 100), (64, 16384),
-                 (16, 131072), (5, 257)]
+                 (16, 131072), (5, 257), (3, 300001)]
     for n, w in crc_cases:
         words = rand_words((n, w))
         err = max_abs_err(crc_ops.crc0_words(words),
                           crc_ops.crc0_words_plain(words))
         check(err == 0, f"crc32c N={n} W={w} differs by {err}")
         errs["crc32c"] = max(errs["crc32c"], err)
+    two_source = [(4, 8, 3, 131072), (3, 4, 2, 257), (1000, 3, 1, 1),
+                  (7, 10, 4, 1000)]
+    for b, k, m, w in two_source:  # data and parity read where they lie
+        d, p = rand_words((b, k, w)), rand_words((b, m, w))
+        err = max_abs_err(crc_ops.crc0_cells(d, p), crc_ops.crc0_words_plain(
+            torch.cat([d, p], dim=1)))
+        check(err == 0, f"crc32c two sources B={b} k={k} m={m} W={w} "
+                        f"differs by {err}")
+        errs["crc32c"] = max(errs["crc32c"], err)
     blob = rng.integers(0, 256, (2, 4096 * 4 + 3), dtype=np.uint8)
     check(all(int(v) == crc_ops.crc32c_np(b.tobytes())
               for v, b in zip(crc_ops.crc32c_batch(blob, device=dev), blob)),
           "crc32c_batch against the scalar reference")
     emit({"phase": "kernel_vs_plain", "gf_cases": len(gf_cases) + 1,
-          "crc_cases": len(crc_cases) + 1, "max_abs_err": errs})
+          "crc_cases": len(crc_cases) + len(two_source) + 1,
+          "max_abs_err": errs})
 
     # ---- phase 4: the main path at full width
     params = datapath.ECParams(k=MAIN_K, m=MAIN_M, chunk_bytes=MAIN_CHUNK)
@@ -270,7 +288,7 @@ def main() -> int:
     del surviving_want, wanted, cparity, ccrcs, decoded, encoded
 
     # ---- phase 5: times at the main path's shapes (data on the card)
-    full_cells = torch.cat([data, parity], dim=1).reshape(-1, params.words)
+    full_cells = torch.cat([data, parity], dim=1)  # the plain version's input
     repair_cells = rebuilt.reshape(-1, params.words)
     rmat = gf8.decode_matrix(params.matrix, MAIN_K, list(PRESENT))
     words = params.words
@@ -281,9 +299,9 @@ def main() -> int:
         "gf_repair": (lambda: rs.gf_matmul(rmat, surviving),
                       lambda: rs.gf_matmul_plain(rmat, surviving),
                       gf_work(MAIN_B, MAIN_K, MAIN_K, words)),
-        "crc_write": (lambda: crc_ops.crc0_words(full_cells),
+        "crc_write": (lambda: crc_ops.crc0_cells(data, parity),
                       lambda: crc_ops.crc0_words_plain(full_cells),
-                      crc_work(full_cells.shape[0], words)),
+                      crc_work(MAIN_B * (MAIN_K + MAIN_M), words)),
         "crc_repair": (lambda: crc_ops.crc0_words(repair_cells),
                        lambda: crc_ops.crc0_words_plain(repair_cells),
                        crc_work(repair_cells.shape[0], words)),
@@ -301,10 +319,9 @@ def main() -> int:
                       "bound_by": b_by, "max_abs_err": err}
         emit({"phase": "time", "what": key, **timed[key],
               "GB_per_s": nbytes / ms / 1e6, "share_of_bound": b_ms / ms})
-    cat_ms = time_ms(lambda: torch.cat([data, parity], dim=1))
     steps = {
         "write_step": (lambda: datapath.write_step(params, data),
-                       timed["gf_write"]["ms"] + cat_ms + timed["crc_write"]["ms"],
+                       timed["gf_write"]["ms"] + timed["crc_write"]["ms"],
                        timed["gf_write"]["bound_ms"]),
         "repair_step": (lambda: datapath.repair_step(params, PRESENT, surviving),
                         timed["gf_repair"]["ms"] + timed["crc_repair"]["ms"],
@@ -313,27 +330,41 @@ def main() -> int:
     for key, (step, parts_ms, b_ms) in steps.items():
         ms = time_ms(step)
         emit({"phase": "time", "what": key, "ms": ms, "parts_ms": parts_ms,
-              "cat_ms": cat_ms if key == "write_step" else 0.0,
               "data_GiB_per_s": MAIN_B * MAIN_K * params.chunk_bytes / ms
               * 1e3 / 2**30, "bound_ms": b_ms})
 
-    # ---- phase 6: device busy and idle share over back-to-back steps
+    # ---- phase 6: device busy and idle share over back-to-back steps; the
+    # write step reads data and parity where they lie, so its profile holds
+    # the two kernels and the seed XOR and no copy kernel
     for key, (step, _, _) in steps.items():
-        emit({"phase": "profile", "what": key, **profile_steps(step)})
+        prof = profile_steps(step)
+        emit({"phase": "profile", "what": key, **prof})
+        copies = [n for n in prof["ms_per_step"]
+                  if any(s in n.lower() for s in ("cat", "copy", "memcpy"))]
+        check(not copies, f"{key} launched copy kernels {copies}")
+
+    def shapes(*keys):  # every main-path shape a kernel was timed at
+        return {k.split("_", 1)[1]: {f: timed[k][f] for f in
+                                     ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for k in keys}
 
     table = [
         {"name": "gf_matmul", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
          "replaces": "ceph_tpu/ops/rs.py:348",
          "launches": launches["gf_matmul"], **timed["gf_write"],
-         "max_abs_err": max(errs["gf_matmul"], timed["gf_write"]["max_abs_err"]),
-         "library_ms": None},
+         "max_abs_err": max(errs["gf_matmul"], timed["gf_write"]["max_abs_err"],
+                            timed["gf_repair"]["max_abs_err"]),
+         "library_ms": None, "shapes": shapes("gf_write", "gf_repair")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:231",
          "launches": launches["crc32c"], **timed["crc_write"],
-         "max_abs_err": max(errs["crc32c"], timed["crc_write"]["max_abs_err"]),
-         "library_ms": None},
+         "max_abs_err": max(errs["crc32c"], timed["crc_write"]["max_abs_err"],
+                            timed["crc_repair"]["max_abs_err"],
+                            timed["crc_checksummer"]["max_abs_err"]),
+         "library_ms": None,
+         "shapes": shapes("crc_write", "crc_repair", "crc_checksummer")},
     ]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
 """The port's CRC32C (plain version on the CPU, and the CUDA kernel's
-segment-and-join algorithm emulated with its own host constants) against
+segment product and joins emulated with its own host constants) against
 the JAX package. Tolerance: exact equality (integer-only arithmetic)."""
 import jax.numpy as jnp
 import numpy as np
@@ -75,33 +75,51 @@ def test_pack_blobs_matches_jax():
 
 
 def _kernel_emulation(words: np.ndarray) -> np.ndarray:
-    """crc32c.cu's algorithm in Python with the constants the wrapper
-    hands it: per-thread slicing-by-4 over front-padded segments, then
-    log2(threads) joins by the Z operators."""
+    """crc32c.cu's algorithm in scalar Python with the constants the
+    wrapper hands it: front-padded rows of seg-word segments, each
+    segment's CRC bit o the parity of popc(word & B) summed over the
+    segment's words, segments joined by Z_{4 seg}, rows by the tree."""
     n, w = words.shape
-    threads = kernels.CRC_THREADS
-    seg = kernels.crc_segment_words(w)
-    t = [[int(v) for v in row] for row in crc._slice_tables()]
-    z = crc._join_columns(w)
+    seg, subs, nseg = crc.crc_plan(w)
+    frags = crc.b1_fragments(seg)  # [ch, kk, j, lane 4n+t, h]
+    z = crc.join_columns(w)
+
+    def b_word(i: int, out_bit: int) -> int:
+        """The 32 K bits of B for word i of a segment, output bit out_bit."""
+        ch, rest = divmod(i, 32)
+        t, rest = divmod(rest, 8)
+        h, kk = divmod(rest, 4)
+        j = (out_bit & 7) >> 1
+        col = 2 * (out_bit >> 3) + (out_bit & 1)
+        return int(frags[ch, kk, j, 4 * col + t, h])
+
+    def apply(cols, x):
+        acc = 0
+        for b in range(32):
+            if (x >> b) & 1:
+                acc ^= int(cols[b])
+        return acc
+
     out = []
     for blob in words:
-        padded = [0] * (seg * threads - w) + [int(v) for v in blob]
+        padded = [0] * (nseg * subs * seg - w) + [int(v) for v in blob]
         part = []
-        for th in range(threads):
+        for r in range(nseg):
             c = 0
-            for v in padded[th * seg:(th + 1) * seg]:
-                c ^= v
-                c = (t[3][c & 0xFF] ^ t[2][(c >> 8) & 0xFF]
-                     ^ t[1][(c >> 16) & 0xFF] ^ t[0][c >> 24])
+            for s_ in range(subs):
+                base = (r * subs + s_) * seg
+                sub = 0
+                for o in range(32):
+                    pop = sum(bin(padded[base + i] & b_word(i, o)).count("1")
+                              for i in range(seg))
+                    sub |= (pop & 1) << o
+                c = apply(z[0], c) ^ sub
             part.append(c)
-        for level in range(kernels.CRC_LEVELS):
-            s = 1 << level
-            for th in range(0, threads, 2 * s):
-                acc = 0
-                for b in range(32):
-                    if (part[th] >> b) & 1:
-                        acc ^= int(z[level][b])
-                part[th] = acc ^ part[th + s]
+        level = 0
+        while len(part) > 1:
+            part = [apply(z[1 + level], part[i]) ^ part[i + 1]
+                    for i in range(0, len(part), 2)]
+            level += 1
         out.append(part[0])
     return np.array(out, dtype=np.uint32)
 
@@ -113,4 +131,4 @@ def test_kernel_algorithm_and_constants(w):
     want = np.array([jcrc.crc32c_np(b.tobytes(), 0) for b in words],
                     dtype=np.uint32)
     assert np.array_equal(_kernel_emulation(words), want)
-    assert crc._join_columns(w).shape == (kernels.CRC_LEVELS, 32)
+    assert crc.join_columns(w).shape == (kernels.CRC_LEVELS + 1, 32)

@@ -30,7 +30,9 @@ def _words(rng, shape, dev):
 
 @pytest.mark.parametrize("r,c,b,w", [(3, 8, 2, 4096), (1, 2, 1, 1),
                                      (2, 5, 3, 1000), (12, 20, 1, 300),
-                                     (40, 60, 1, 33)])
+                                     (40, 60, 1, 33), (8, 8, 2, 257),
+                                     (16, 40, 1, 1000), (4, 240, 2, 257),
+                                     (3, 8, 1, 6), (256, 256, 1, 9)])
 def test_gf_matmul_kernel_equals_plain(cuda, r, c, b, w):
     rng = np.random.default_rng(r * c)
     mat = rng.integers(0, 256, (r, c), dtype=np.uint8)
@@ -42,7 +44,8 @@ def test_gf_matmul_kernel_equals_plain(cuda, r, c, b, w):
     assert torch.equal(got, rs.gf_matmul_plain(mat, x))
 
 
-@pytest.mark.parametrize("n,w", [(70000, 1), (3, 100), (4, 16384), (2, 257)])
+@pytest.mark.parametrize("n,w", [(70000, 1), (3, 100), (4, 16384), (2, 257),
+                                 (5, 3), (2, 140000), (300, 1000)])
 def test_crc32c_kernel_equals_plain(cuda, n, w):
     x = _words(np.random.default_rng(w), (n, w), cuda)
     before = kernels.CRC32C.launches
@@ -51,10 +54,26 @@ def test_crc32c_kernel_equals_plain(cuda, n, w):
     assert torch.equal(got, crc32c.crc0_words_plain(x))
 
 
+@pytest.mark.parametrize("k,m,w", [(8, 3, 4096), (4, 2, 257), (3, 1, 1),
+                                   (8, 3, 16384)])
+def test_two_source_crcs_equal_crcs_of_the_concatenation(cuda, k, m, w):
+    rng = np.random.default_rng(k * m + w)
+    data = _words(rng, (3, k, w), cuda)
+    parity = _words(rng, (3, m, w), cuda)
+    before = kernels.CRC32C.launches
+    got = crc32c.crc0_cells(data, parity)
+    assert kernels.CRC32C.launches == before + 1
+    assert torch.equal(got, crc32c.crc0_words_plain(
+        torch.cat([data, parity], dim=1)))
+
+
 def test_write_and_repair_step_on_the_card(cuda):
     params = datapath.ECParams(k=8, m=3, chunk_bytes=4096)
     data = datapath.example_batch(params, batch=4, device=cuda)
+    gf0, crc0 = kernels.GF_MATMUL.launches, kernels.CRC32C.launches
     parity, crcs = datapath.write_step(params, data)
+    assert kernels.GF_MATMUL.launches == gf0 + 1  # one launch of each kernel
+    assert kernels.CRC32C.launches == crc0 + 1
     cpu_parity, cpu_crcs = datapath.write_step(params, data.cpu())
     assert torch.equal(parity.cpu(), cpu_parity)
     assert torch.equal(crcs.cpu(), cpu_crcs)
@@ -67,8 +86,30 @@ def test_write_and_repair_step_on_the_card(cuda):
 
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((1, 4, 8), dtype=torch.int32, device=cuda)
-    consts = words_to_tensor(rs.swar_constants(gf8.raid6_matrix(4)), cuda)
+    frags = words_to_tensor(rs.b1_fragments(gf8.raid6_matrix(4)), cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.gf_matmul(x.transpose(1, 2), consts, 2)
+        kernels.gf_matmul(x.transpose(1, 2), frags, 2)
     with pytest.raises(ValueError):
-        kernels.gf_matmul(x, consts, 3)
+        kernels.gf_matmul(x, frags, 5)  # frags are for 2 rows: one quad
+    with pytest.raises(TypeError):
+        kernels.gf_matmul(x.to(torch.int64), frags, 2)
+    w = 64
+    seg, subs, nseg = crc32c.crc_plan(w)
+    cfrags = words_to_tensor(crc32c.b1_fragments(seg), cuda)
+    zcols = words_to_tensor(crc32c.join_columns(w), cuda)
+    cells = torch.zeros((2, 3, w), dtype=torch.int32, device=cuda)
+    args = (cfrags, zcols, seg, subs, nseg.bit_length() - 1)
+    assert kernels.crc32c(cells, cells[:, :1].contiguous(), *args).shape == (2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.crc32c(cells[:, :, ::2], None, *args)
+    with pytest.raises(TypeError):
+        kernels.crc32c(cells.to(torch.int64), None, *args)
+    with pytest.raises(ValueError, match="does not pair"):
+        kernels.crc32c(cells, cells[:1], *args)  # stripe counts differ
+    with pytest.raises(ValueError, match="does not pair"):
+        kernels.crc32c(cells, cells[..., :32].contiguous(), *args)  # widths
+    with pytest.raises(ValueError, match="do not pair up"):
+        crc32c.crc0_cells(cells, cells.cpu())
+    with pytest.raises(ValueError, match="do not fit"):
+        kernels.crc32c(cells, None, cfrags, zcols, 2 * seg, subs,
+                       nseg.bit_length() - 1)

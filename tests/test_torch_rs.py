@@ -102,23 +102,14 @@ def test_helpers_match_jax():
     assert np.array_equal(rs.unpack_u32(rs.pack_u32(b)), b)
 
 
-def test_swar_constants():
-    mat = jgf8.cauchy_rs_matrix(3, 2)
-    mc = rs.swar_constants(mat)
-    assert mc.shape == (2, 3, 8)
-    assert np.array_equal(mc[..., 0], mat)
-    for b in range(8):
-        assert mc[1, 2, b] == jgf8.gf_mul(int(mat[1, 2]), 1 << b)
-
-
 def test_kernel_wrapper_refuses_cpu_and_other_devices():
     x = torch.zeros((1, 2, 4), dtype=torch.int32)
-    consts = torch.zeros((1, 2, 8), dtype=torch.int32)
+    frags = torch.zeros((1, 1, 16, 32, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.gf_matmul(x, consts, 1)
+        kernels.gf_matmul(x, frags, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.crc32c(x[0], torch.zeros((4, 256), dtype=torch.int32),
-                       torch.zeros((8, 32), dtype=torch.int32))
+        kernels.crc32c(x, None, torch.zeros((1, 4, 4, 32, 2), dtype=torch.int32),
+                       torch.zeros((9, 32), dtype=torch.int32), 32, 1, 0)
     with pytest.raises(ValueError, match="no GF matmul kernel"):
         rs.gf_matmul(np.ones((1, 2), np.uint8), x.to("meta"))
     with pytest.raises(TypeError):
