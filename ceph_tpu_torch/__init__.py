@@ -11,6 +11,9 @@ reference so each module's counterpart is easy to find:
   ops/          gf8 (host field math), rs (GF(2^8) matmul), crc32c
   models/       datapath: the batched EC write / repair step
   ec/           codec seam: ErasureCode base, registry, rs_tpu, isa
-  checksum/     the BlueStore Checksummer (crc32c family)
+  checksum/     the BlueStore Checksummer (crc32c family, xxhash)
+  cluster/      the OSD's ECBatcher and stripe layout
+  utils/        config schema, perf counters, fault injection
+  native/       the C++ host core (g++ at first use, ctypes)
   convert.py    hands the reference's state (matrix, stripe data) over
 """

@@ -8,9 +8,9 @@ checksum (Checksummer.h:236-271 contract: -1 == clean).
 
 The crc32c family runs on the port's batched CRC path (``ops/crc32c.py``)
 on the checksummer's device: the CUDA kernel on the card, thousands of
-blocks per launch, or the plain version on the CPU. xxhash32/xxhash64 are
-the C++ host core's in the JAX package and are not yet ported: they raise
-``NotImplementedError``.
+blocks per launch, or the plain version on the CPU. xxhash32/xxhash64 run
+on the port's C++ host core (``native``), one call per block, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve
 from ..ops import crc32c as crc32c_ops
 
@@ -90,11 +91,13 @@ class Checksummer:
         data = _as_u8(data)
         if self.alg == CSUM_NONE:
             return np.zeros(0, dtype=np.uint8)
-        if self.alg in (CSUM_XXHASH32, CSUM_XXHASH64):
-            raise NotImplementedError(
-                f"{self.alg} is the C++ host core's and is not yet ported "
-                "to ceph_tpu_torch")
         blocks = self._blocks(data, data.size)
+        if self.alg == CSUM_XXHASH32:
+            return np.array([native.xxhash32(b, seed=self.init_value)
+                             for b in blocks], dtype=np.uint32)
+        if self.alg == CSUM_XXHASH64:
+            return np.array([native.xxhash64(b, seed=self.init_value)
+                             for b in blocks], dtype=np.uint64)
         crcs = crc32c_ops.crc32c_batch(blocks, seed=self.init_value,
                                        device=self.device)
         if self.alg == CSUM_CRC32C_16:

@@ -7,16 +7,25 @@ reference; cauchy_orig/cauchy_good use the same Cauchy generator matrices
 applied byte-wise (the reference runs them as bit-matrix schedule codes,
 so those shards are not wire-compatible with reference-written ones).
 
-Every path of this codec runs ``ops.rs.gf_matmul`` on the codec's torch
-device: the CUDA kernel on the card, its plain version on the CPU. That
-includes the byte API ``encode_chunks`` / ``decode_chunks``, which in the
-JAX package goes to the C++ host core. Beside it is the batched API the EC
-backend uses: ``encode_batch`` / ``encode_crc_batch`` / ``decode_batch``
-over (B, k, W) stripe batches, one kernel launch for the whole batch.
+Profile ``backend`` picks the engine (``resolved_backend``):
+- ``device`` and ``auto`` (the default): ``ops.rs.gf_matmul`` on the
+  codec's torch device -- the CUDA kernel on the card, its plain version
+  on the CPU -- for the byte API ``encode_chunks`` / ``decode_chunks`` as
+  well (the JAX package sends that to its C++ host core). ``auto`` probes
+  the host-vs-device economics in the JAX package (``ec/engine.py``); the
+  port runs on the card and does not port that probe.
+- ``host``: the byte API runs on the port's C++ host core
+  (``native.rs_matmul``), and the EC batcher encodes and decodes with
+  ``native.rs_encode`` / ``native.rs_matmul``.
 
-Not yet ported (raise ``ECError``): profile ``backend=host`` (the C++
-host core) and the bit-matrix technique family (liberation, blaum_roth,
-liber8tion, cauchy_bm), which the JAX package hands to its bitmatrix codec.
+Beside the byte API is the batched API the EC backend uses:
+``encode_batch`` / ``encode_crc_batch`` / ``decode_batch`` over (B, k, W)
+stripe batches on the codec's torch device, one kernel launch for the
+whole batch, whatever the backend.
+
+Not yet ported (raise ``ECError``): the bit-matrix technique family
+(liberation, blaum_roth, liber8tion, cauchy_bm), which the JAX package
+hands to its bitmatrix codec.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from ..device import words_to_tensor
 from ..ops import gf8, rs
 from . import ECError, ErasureCode
@@ -114,12 +124,10 @@ class RSCodec(ErasureCode):
             raise ECError(f"only w=8 is supported, got w={w}")
         if self.k < 1 or self.m < 1 or self.k + self.m > 256:
             raise ECError(f"bad k={self.k} m={self.m} (k+m <= 256)")
-        backend = self.profile.get("backend", "device")
-        if backend == "host":
-            raise ECError("backend=host (the C++ host core) is not yet "
-                          "ported to ceph_tpu_torch")
-        if backend not in ("device", "auto"):
-            raise ECError(f"backend must be device|auto, not {backend!r}")
+        self.backend = self.profile.get("backend", "auto")
+        if self.backend not in ("device", "host", "auto"):
+            raise ECError(
+                f"backend must be device|host|auto, not {self.backend!r}")
         self.per_chunk_alignment = self.to_bool(
             "jerasure-per-chunk-alignment", False
         )
@@ -136,11 +144,20 @@ class RSCodec(ErasureCode):
 
     # ----------------------------------------------------- byte interface
 
+    def resolved_backend(self) -> str:
+        """The engine the EC batcher runs this codec on: "host" for
+        backend=host, else "device" (``auto`` included: the port runs on
+        the card and has no host-vs-device probe)."""
+        return "host" if self.backend == "host" else "device"
+
     def _bytes_matmul(self, matrix: np.ndarray, chunks: np.ndarray) -> np.ndarray:
-        """(C, L) uint8 -> (R, L) uint8 through gf_matmul on the codec's
-        device. L need not be a multiple of 4: the byte-wise code is
-        blind to zero padding, which is trimmed off again."""
+        """(C, L) uint8 -> (R, L) uint8: the C++ host core for
+        backend=host, else gf_matmul on the codec's device. L need not be
+        a multiple of 4: the byte-wise code is blind to zero padding,
+        which is trimmed off again."""
         chunks = np.ascontiguousarray(chunks, dtype=np.uint8)
+        if self.backend == "host":
+            return native.rs_matmul(matrix, chunks)
         n = chunks.shape[-1]
         tail = -n % 4
         if tail:

@@ -14,7 +14,9 @@ The ops modules choose between a kernel and its plain version by the
 device of the tensor they were given.
 
 Each ``Kernel`` counts its successful launches in ``launches`` (a plain
-integer), so a run can show that its main path went through the kernel.
+integer, bumped under the kernel's lock: the EC batcher launches from
+several executor threads at once), so a run can show that its main path
+went through the kernel.
 """
 from __future__ import annotations
 
@@ -131,7 +133,8 @@ class Kernel:
             rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError_t {rc}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 GF_MATMUL = Kernel("gf_matmul", "gf_matmul.cu", "gf_matmul_launch",
@@ -161,7 +164,8 @@ def build_all() -> float:
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        with k._lock:
+            k.launches = 0
 
 
 def _check_words(t: torch.Tensor, ndim: int, what: str) -> None:

@@ -262,6 +262,8 @@ def join_columns(w: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _kernel_constants(w: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    # Blocking copies: the cached tensors are complete before any stream
+    # (each EC batcher thread has its own) reads them.
     seg = crc_plan(w)[0]
     return (words_to_tensor(b1_fragments(seg), device),
             words_to_tensor(join_columns(w), device))

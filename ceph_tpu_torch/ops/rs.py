@@ -94,6 +94,8 @@ def b1_fragments(matrix: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=4096)
 def _device_fragments(matrix_bytes: bytes, rows: int, cols: int,
                       device: str) -> torch.Tensor:
+    # A blocking copy: the cached tensor is complete before any stream
+    # (each EC batcher thread has its own) reads it.
     matrix = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(rows, cols)
     return words_to_tensor(b1_fragments(matrix), device)
 

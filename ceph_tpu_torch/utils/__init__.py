@@ -1,0 +1,8 @@
+"""Platform primitives the port's OSD-side modules stand on (the JAX
+package's ``ceph_tpu/utils``, copied as the port reaches them):
+
+- ``config`` — typed option schema + runtime config with observers
+  (the md_config_t / ConfigProxy role).
+- ``perf`` — counters registry (the PerfCounters role).
+- ``fault`` — fault injection points (the FaultInjector role).
+"""

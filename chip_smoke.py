@@ -14,6 +14,20 @@ write, repair and Checksummer shapes, its plain version and each step with
 CUDA events, and checks from a torch.profiler trace that the write step
 (which CRCs data and parity where they lie) launches no copy kernel.
 
+Phase ``ecbatch`` drives the OSD's EC dispatch engine, one ``ECBatcher``
+(PerfCounters, the port's config: batch target 64 stripes, window 20 ms,
+the OSD's idle probe) over an ``rs_tpu`` k=8, m=3 codec on the card at the
+OSD's stripe unit (4 KiB cells), with three mixes of host-resident numpy
+cells: ``write_4m`` (256 x 128-stripe full-object writes, 16 at a time,
+1 GiB), ``rmw_4k`` (8,192 one-stripe overwrites, 64 at a time, 256 MiB)
+and ``recovery`` (256 x 128-stripe rebuilds of shards 1 and 6, 16 at a
+time, 1 GiB, then one degraded read of shards 1 and 9). Every parity and
+rebuilt cell is held against the C++ host engine and every CRC against its
+CRC32C; each mix prints its throughput, per-submission latency, batch
+occupancy, flush reasons and kernel launches, beside the card's pinned
+copy rates, each mix's copy bound and a torch.profiler split of
+``write_4m`` (HtoD / kernels / DtoH device time, idle share).
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -22,10 +36,12 @@ device is present. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import asyncio
 import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -39,6 +55,15 @@ MAIN_B, MAIN_K, MAIN_M, MAIN_CHUNK = 256, 8, 3, 512 * KIB
 PRESENT = (0, 2, 3, 4, 5, 7, 8, 9)  # data shards 1 and 6 lost
 CSUM_BLOCK, CSUM_BLOBS = 64 * KIB, 16384
 DEVICE = "cuda"
+
+#: The ecbatch phase: the OSD's stripe unit and batch knobs
+#: (cluster/stripe.py DEFAULT_STRIPE_UNIT, utils/config.py), and per mix
+#: (submissions, stripes per submission, concurrent submitters).
+ECB_SU, ECB_TARGET, ECB_WINDOW = 4096, 64, 0.02
+ECB_MIXES = {"write_4m": (256, 128, 16), "rmw_4k": (8192, 1, 64),
+             "recovery": (256, 128, 16)}
+ECB_WANT, ECB_READ_PRESENT, ECB_READ_WANT = (1, 6), (0, 2, 3, 4, 5, 6, 7, 8), (1, 9)
+COPY_BYTES = 256 * 1024 * KIB  # pinned copy-rate probe, each way
 
 
 def emit(obj: dict) -> None:
@@ -126,6 +151,333 @@ def crc_work(n: int, w: int) -> tuple[float, float]:
     """Bytes: every word in once, one CRC out per blob. Operations: the
     GF(2) product (N, 32W) x (32W, 32) on int8 tensor cores."""
     return 4.0 * n * w + 4.0 * n, 2.0 * 32 * 32 * n * w
+
+
+def random_bytes(rng, shape) -> np.ndarray:
+    """uint8 array of ``shape`` from the smoke's generator (drawn as
+    64-bit words: ~5x faster than ``rng.bytes`` at a GiB)."""
+    n = int(np.prod(shape))
+    words = rng.integers(0, 2**64 - 1, -(-n // 8), dtype=np.uint64,
+                         endpoint=True)
+    return words.view(np.uint8)[:n].reshape(shape)
+
+
+def copy_rates() -> dict:
+    """The card's pinned host<->device copy rates (GB/s), median of 5
+    copies of COPY_BYTES each way, timed with CUDA events."""
+    host = torch.empty(COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), reps=5)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), reps=5)
+    return {"h2d_GB_per_s": COPY_BYTES / h2d / 1e6,
+            "d2h_GB_per_s": COPY_BYTES / d2h / 1e6, "bytes": COPY_BYTES}
+
+
+def span_union(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_split(run) -> dict:
+    """Run ``run()`` once under torch.profiler: device ms of host-to-
+    device copies, kernels and device-to-host copies, and the idle share
+    of the window from the first to the last device event (the union of
+    every stream's events is the busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    split = {"htod_ms": 0.0, "kernels_ms": 0.0, "dtoh_ms": 0.0,
+             "other_ms": 0.0}
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        name = e.name.lower()
+        key = ("htod_ms" if "htod" in name else "dtoh_ms" if "dtoh" in name
+               else "other_ms" if "memcpy" in name or "memset" in name
+               else "kernels_ms")
+        split[key] += (b - a) / 1e3
+    if not spans:
+        return {"device_events": 0, "idle_share": None, **split}
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    return {"device_events": len(spans), "window_ms": window / 1e3,
+            "idle_share": 1 - span_union(spans) / window, **split}
+
+
+def drive(submit, n: int, concurrency: int, state: dict):
+    """``n`` submissions ``submit(i)`` from ``concurrency`` concurrent
+    submitters on one event loop -> (results, per-submission seconds,
+    wall seconds). ``state["inflight"]`` counts submissions in flight
+    (what the OSD's op tracker counts for its idle probe)."""
+    results, lat = [None] * n, [0.0] * n
+    order = iter(range(n))
+
+    async def worker():
+        for i in order:
+            state["inflight"] += 1
+            t0 = time.perf_counter()
+            try:
+                results[i] = await submit(i)
+            finally:
+                state["inflight"] -= 1
+            lat[i] = time.perf_counter() - t0
+
+    async def all_workers():
+        await asyncio.gather(*[worker() for _ in range(concurrency)])
+
+    t0 = time.perf_counter()
+    asyncio.run(all_workers())
+    return results, lat, time.perf_counter() - t0
+
+
+def counter_delta(after: dict, before: dict) -> dict:
+    """The perf counters a mix moved: u64 deltas, histogram count/sum
+    deltas."""
+    out = {}
+    for key, v in after.items():
+        if isinstance(v, dict):
+            out[key] = {f: v[f] - before[key][f] for f in ("count", "sum")}
+        else:
+            out[key] = v - before[key]
+    return out
+
+
+def host_parts(batcher, codec, views: list, reps: int = 10) -> dict:
+    """Where one encode batch made of ``views`` (the submissions it
+    carries) spends host time, medians of ``reps`` on the host clock:
+    the reactor's ``np.concatenate``, the worker's copy into pinned
+    memory alone, and the worker's whole dispatch (``_encode_sync``:
+    pinned copy, transfers, both kernels, the wait)."""
+    def median_s(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    cells = np.concatenate(views)
+    pinned = torch.empty(cells.shape, dtype=torch.uint8, pin_memory=True)
+    return {"stripes": len(cells),
+            "concat_ms": median_s(lambda: np.concatenate(views)) * 1e3,
+            "pinned_copy_ms": median_s(
+                lambda: np.copyto(pinned.numpy(), cells)) * 1e3,
+            "dispatch_ms": median_s(
+                lambda: batcher._encode_sync(codec, cells)) * 1e3}
+
+
+def ecbatch_phase(dev, rng, rates: dict) -> dict:
+    """Drive one ECBatcher over the three mixes, check every cell and CRC
+    against the C++ host engine, print one line per mix and return the
+    kernels' launch counts over the mixes and the batcher-shape times."""
+    from ceph_tpu_torch import kernels, native
+    from ceph_tpu_torch.cluster import FLUSH_REASONS, ECBatcher
+    from ceph_tpu_torch.cluster.stripe import effective_stripe_unit
+    from ceph_tpu_torch.device import words_to_tensor
+    from ceph_tpu_torch.ec import load_codec
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.ops import rs
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.perf import PerfCounters
+
+    k, m = MAIN_K, MAIN_M
+    codec = load_codec({"plugin": "rs_tpu", "k": str(k), "m": str(m),
+                        "technique": "reed_sol_van"}, device=dev)
+    su = effective_stripe_unit(codec, ECB_SU)
+    check(su == ECB_SU, f"stripe unit {su} != {ECB_SU}")
+    conf = config.proxy()
+    conf.apply({"osd_ec_batch_target_stripes": ECB_TARGET,
+                "osd_ec_batch_window": ECB_WINDOW})
+    perf = PerfCounters("osd.0")
+    ECBatcher.declare_counters(perf)
+    state = {"inflight": 0}
+    # the OSD's rule (cluster/osd.py): idle when every op in flight is
+    # parked on the batcher
+    batcher = ECBatcher(perf, conf=conf,
+                        idle_probe=lambda: state["inflight"]
+                        <= batcher.parked())
+    threads = 8
+
+    def native_parity(shard_major: np.ndarray) -> np.ndarray:
+        """(k, S, su) data rows -> (S, m, su) parity, the host engine."""
+        s = shard_major.shape[1]
+        par = native.rs_encode(codec.matrix, shard_major.reshape(k, -1),
+                               threads=threads)
+        return par.reshape(m, s, su).transpose(1, 0, 2)
+
+    def check_crcs(cells: np.ndarray, crcs: np.ndarray, what: str) -> None:
+        want = native.crc32c_batch(cells.reshape(-1, su), threads=threads)
+        check(np.array_equal(crcs.reshape(-1), want), f"{what} CRCs")
+
+    lines, launches = {}, {kk.name: 0 for kk in kernels.KERNELS}
+
+    def run_mix(name, submit, per_stripe_h2d, per_stripe_d2h):
+        n, per, conc = ECB_MIXES[name]
+        before = perf.dump()
+        kernels.reset_counts()
+        results, lat, wall = drive(submit, n, conc, state)
+        counts = {kk.name: kk.launches for kk in kernels.KERNELS}
+        for kk, v in counts.items():
+            launches[kk] += v
+        d = counter_delta(perf.dump(), before)
+        hist = d["ec_batch_stripes" if name != "recovery"
+                 else "ec_decode_stripes"]
+        stripes = n * per
+        h2d, d2h = stripes * per_stripe_h2d, stripes * per_stripe_d2h
+        lat_ms = np.array(lat) * 1e3
+        lines[name] = {
+            "phase": "ecbatch", "mix": name, "submissions": n,
+            "stripes_per_submission": per, "concurrency": conc,
+            "stripe_unit": su, "data_bytes": stripes * k * su,
+            "wall_s": wall, "stripes_per_s": stripes / wall,
+            "data_GiB_per_s": stripes * k * su / wall / 2**30,
+            "lat_p50_ms": float(np.percentile(lat_ms, 50)),
+            "lat_p99_ms": float(np.percentile(lat_ms, 99)),
+            "batches": hist["count"],
+            "mean_stripes_per_batch": hist["sum"] / max(1, hist["count"]),
+            "flush": {r: d[f"ec_flush_{r}"] for r in FLUSH_REASONS},
+            "ec_decode_cold_host": d["ec_decode_cold_host"],
+            "ec_batch_failures": d["ec_batch_failures"],
+            "launches": counts, "h2d_bytes": h2d, "d2h_bytes": d2h,
+            "copy_bound_ms": max(h2d / rates["h2d_GB_per_s"],
+                                 d2h / rates["d2h_GB_per_s"]) / 1e6}
+        check(d["ec_batch_failures"] == 0, f"{name}: a batch failed")
+        return results
+
+    # write_4m: full-object writes; each op's cells are the (T, k, su)
+    # transpose of its shard-major staging rows, as the PG submits them
+    n, per, _ = ECB_MIXES["write_4m"]
+    wdata = random_bytes(rng, (n, k, per, su))
+    write_submit = (lambda i: batcher.encode_cells(
+        codec, wdata[i].transpose(1, 0, 2)))
+    out = run_mix("write_4m", write_submit, k * su, m * su + 4 * (k + m))
+    wparity = np.stack([p for p, _ in out])      # (n, per, m, su)
+    for i in range(n):
+        check(np.array_equal(wparity[i], native_parity(wdata[i])),
+              f"write_4m parity of submission {i}")
+        check_crcs(np.concatenate([wdata[i].transpose(1, 0, 2), wparity[i]],
+                                  axis=1), out[i][1], f"write_4m {i}")
+    check(all(v > 0 for v in lines["write_4m"]["launches"].values()),
+          f"write_4m launches {lines['write_4m']['launches']}")
+    emit(lines["write_4m"])
+
+    # rmw_4k: one-stripe overwrites
+    n, per, _ = ECB_MIXES["rmw_4k"]
+    rdata = random_bytes(rng, (n, k, per, su))
+    out = run_mix("rmw_4k", lambda i: batcher.encode_cells(
+        codec, rdata[i].transpose(1, 0, 2)), k * su, m * su + 4 * (k + m))
+    rparity = np.concatenate([p for p, _ in out])  # (n * per, m, su)
+    check(np.array_equal(rparity, native_parity(np.ascontiguousarray(
+        rdata.transpose(1, 0, 2, 3)).reshape(k, n * per, su))),
+        "rmw_4k parity")
+    check_crcs(np.concatenate([rdata.transpose(0, 2, 1, 3).reshape(
+        n * per, k, su), rparity], axis=1),
+        np.concatenate([c for _, c in out]), "rmw_4k")
+    emit(lines["rmw_4k"])
+
+    # recovery: shards 1 and 6 lost; survivors from write_4m's cells
+    n, per, _ = ECB_MIXES["recovery"]
+    check(n == ECB_MIXES["write_4m"][0] and per == ECB_MIXES["write_4m"][1],
+          "recovery rebuilds write_4m's stripes")
+    every = np.concatenate([wdata.transpose(0, 2, 1, 3), wparity], axis=2)
+    surv = np.ascontiguousarray(every[:, :, list(PRESENT)])
+    rmat = codec.decode_matrix_for(PRESENT, ECB_WANT)
+    out = run_mix("recovery", lambda i: batcher.decode_cells(
+        codec, PRESENT, ECB_WANT, surv[i]), k * su, len(ECB_WANT) * su)
+    for i in range(n):
+        flat = surv[i].transpose(1, 0, 2).reshape(k, -1)
+        want = native.rs_matmul(rmat, flat, threads=threads)
+        check(np.array_equal(out[i].transpose(1, 0, 2).reshape(
+            len(ECB_WANT), -1), want), f"recovery {i} vs host engine")
+        check(np.array_equal(out[i], every[i][:, list(ECB_WANT)]),
+              f"recovery {i} vs the original cells")
+    rec = lines["recovery"]
+    device_rounds = rec["batches"] - rec["ec_decode_cold_host"]
+    check(rec["ec_decode_cold_host"] > 0 and device_rounds > 0,
+          f"recovery: {rec['ec_decode_cold_host']} host rounds and "
+          f"{device_rounds} device rounds")
+    read = asyncio.run(batcher.decode_cells(
+        codec, ECB_READ_PRESENT, ECB_READ_WANT,
+        np.ascontiguousarray(every[0][:, list(ECB_READ_PRESENT)])))
+    check(np.array_equal(read, every[0][:, list(ECB_READ_WANT)]),
+          "degraded read of shards 1 and 9")
+    rec["device_rounds"] = device_rounds
+    rec["warm_s"] = {f"{key[3]}->{key[4]}": v
+                     for key, v in batcher.warm_seconds.items()}
+    emit(rec)
+    del surv, every, out
+
+    # the write mix again under the profiler: HtoD / kernels / DtoH
+    again = []
+
+    def write_again():
+        res, _, wall = drive(write_submit, ECB_MIXES["write_4m"][0],
+                             ECB_MIXES["write_4m"][2], state)
+        again.append((res, wall))
+
+    split = profile_split(write_again)
+    res, wall = again[0]
+    check(all(np.array_equal(p, wparity[i]) for i, (p, _) in
+              enumerate(res)), "write_4m under the profiler")
+    emit({"phase": "ecbatch_profile", "mix": "write_4m", "wall_s": wall,
+          **split})
+
+    # host time of one batch of each encode mix, by part
+    conc = ECB_MIXES["write_4m"][2]
+    parts = {"write_4m": host_parts(batcher, codec, [
+        wdata[i].transpose(1, 0, 2) for i in range(conc)]),
+        "rmw_4k": host_parts(batcher, codec, [
+            rdata[i].transpose(1, 0, 2) for i in range(ECB_TARGET)])}
+    for name, part in parts.items():
+        part["batch_ms_in_mix"] = (lines[name]["wall_s"] * 1e3
+                                   / lines[name]["batches"])
+    emit({"phase": "ecbatch_host_parts", **parts})
+
+    # both kernels at the batcher's shapes: one 64-stripe batch of cells.
+    # A call's event time there is mostly the host's launch path; the
+    # profiler's device time is the kernel's own
+    w = su // 4
+    x = words_to_tensor(rng.integers(0, 2**32, (ECB_TARGET, k, w),
+                                     dtype=np.uint32), dev)
+    par = rs.gf_matmul(codec.matrix, x)
+    rm = codec.decode_matrix_for(PRESENT, ECB_WANT)
+    cases = {
+        "gf_batch_write": (lambda: rs.gf_matmul(codec.matrix, x),
+                           lambda: rs.gf_matmul_plain(codec.matrix, x),
+                           gf_work(ECB_TARGET, m, k, w)),
+        "gf_batch_decode": (lambda: rs.gf_matmul(rm, x),
+                            lambda: rs.gf_matmul_plain(rm, x),
+                            gf_work(ECB_TARGET, len(ECB_WANT), k, w)),
+        "crc_batch_write": (lambda: crc_ops.crc0_cells(x, par),
+                            lambda: crc_ops.crc0_words_plain(
+                                torch.cat([x, par], dim=1)),
+                            crc_work(ECB_TARGET * (k + m), w)),
+    }
+    timed = {}
+    for key, (kernel, plain, (nbytes, ops)) in cases.items():
+        err = max_abs_err(kernel(), plain())
+        check(err == 0, f"{key}: kernel and plain differ by {err}")
+        ms, plain_ms = time_ms(kernel, reps=50), time_ms(plain)
+        b_ms, b_by = bound(nbytes, ops)
+        device_ms = sum(profile_steps(kernel, reps=20)["ms_per_step"].values())
+        timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err,
+                      "device_ms": device_ms}
+        emit({"phase": "time", "what": key, **timed[key]})
+    return {"launches": launches, "timed": timed}
 
 
 def main() -> int:
@@ -343,10 +695,22 @@ def main() -> int:
                   if any(s in n.lower() for s in ("cat", "copy", "memcpy"))]
         check(not copies, f"{key} launched copy kernels {copies}")
 
+    # ---- phase 7: the OSD's EC dispatch engine (ECBatcher) at its shapes
+    rates = copy_rates()
+    emit({"phase": "copy_rates", **rates})
+    ecb = ecbatch_phase(dev, rng, rates)
+    for key, n in ecb["launches"].items():
+        check(n > 0, f"the ecbatch mixes launched {key} {n} times")
+    timed.update(ecb["timed"])
+
     def shapes(*keys):  # every main-path shape a kernel was timed at
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
-                                     ("ms", "plain_ms", "bound_ms", "bound_by")}
+                                     ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "device_ms") if f in timed[k]}
                 for k in keys}
+
+    def by_path(name):
+        return {"main_path": launches[name], "ecbatch": ecb["launches"][name]}
 
     table = [
         {"name": "gf_matmul", "route": "cuda",
@@ -354,17 +718,23 @@ def main() -> int:
          "replaces": "ceph_tpu/ops/rs.py:348",
          "launches": launches["gf_matmul"], **timed["gf_write"],
          "max_abs_err": max(errs["gf_matmul"], timed["gf_write"]["max_abs_err"],
-                            timed["gf_repair"]["max_abs_err"]),
-         "library_ms": None, "shapes": shapes("gf_write", "gf_repair")},
+                            timed["gf_repair"]["max_abs_err"],
+                            timed["gf_batch_write"]["max_abs_err"],
+                            timed["gf_batch_decode"]["max_abs_err"]),
+         "library_ms": None, "launches_by_path": by_path("gf_matmul"),
+         "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
+                          "gf_batch_decode")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:231",
          "launches": launches["crc32c"], **timed["crc_write"],
          "max_abs_err": max(errs["crc32c"], timed["crc_write"]["max_abs_err"],
                             timed["crc_repair"]["max_abs_err"],
-                            timed["crc_checksummer"]["max_abs_err"]),
-         "library_ms": None,
-         "shapes": shapes("crc_write", "crc_repair", "crc_checksummer")},
+                            timed["crc_checksummer"]["max_abs_err"],
+                            timed["crc_batch_write"]["max_abs_err"]),
+         "library_ms": None, "launches_by_path": by_path("crc32c"),
+         "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
+                          "crc_batch_write")},
     ]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -61,6 +61,22 @@ def test_none_unaligned_and_unported():
         Checksummer("crc32c", 1000, device="cpu")
     with pytest.raises(ValueError):
         Checksummer("md5", 4096, device="cpu")
-    for alg in ("xxhash32", "xxhash64"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Checksummer(alg, 4096, device="cpu").calculate(b"x" * 4096)
+    for alg in ("xxhash32", "xxhash64"):  # ported: the C++ host core
+        data = b"x" * 4096 * 3
+        got = Checksummer(alg, 4096, device="cpu").calculate(data)
+        assert np.array_equal(got, JChecksummer(alg, 4096).calculate(data))
+
+
+@pytest.mark.parametrize("alg", ["xxhash32", "xxhash64"])
+@pytest.mark.parametrize("init", [None, 0, 0x1234])
+def test_xxhash_matches_jax(alg, init):
+    data = np.random.default_rng(7).integers(0, 256, 512 * 5, dtype=np.uint8)
+    cs = Checksummer(alg, 512, init_value=init, device="cpu")
+    want = JChecksummer(alg, 512, init_value=init).calculate(data)
+    got = cs.calculate(data)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert csum_value_size(alg) == got.dtype.itemsize
+    assert cs.verify(data, got) == (-1, None)
+    bad = data.copy()
+    bad[512 * 2] ^= 1
+    assert cs.verify(bad, got)[0] == 1024

@@ -130,13 +130,14 @@ def test_batched_api_matches_jax():
 
 
 @pytest.mark.parametrize("profile,match", [
-    ({"plugin": "rs_tpu", "backend": "host"}, "not yet ported"),
+    ({"plugin": "rs_tpu", "technique": "liber8tion"}, "not yet ported"),
     ({"plugin": "rs_tpu", "technique": "liberation"}, "not yet ported"),
     ({"plugin": "rs_tpu", "technique": "blaum_roth"}, "not yet ported"),
     ({"plugin": "rs_tpu", "technique": "nope"}, "not supported"),
     ({"plugin": "rs_tpu", "k": "200", "m": "60"}, "k\\+m"),
     ({"plugin": "rs_tpu", "w": "16"}, "w=8"),
     ({"plugin": "isa", "technique": "reed_sol_r6_op"}, "isa technique"),
+    ({"plugin": "rs_tpu", "backend": "tpu"}, "device\\|host\\|auto"),
 ])
 def test_profiles_refused(profile, match):
     with pytest.raises(ECError, match=match):

@@ -5,12 +5,17 @@ JAX package, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
+import asyncio
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from ceph_tpu_torch import kernels
+from ceph_tpu_torch import kernels, native
+from ceph_tpu_torch.cluster import ECBatcher
 from ceph_tpu_torch.device import words_to_tensor
+from ceph_tpu_torch.ec import load_codec
 from ceph_tpu_torch.models import datapath
 from ceph_tpu_torch.ops import crc32c, gf8, rs
 
@@ -113,3 +118,98 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="do not fit"):
         kernels.crc32c(cells, None, cfrags, zcols, 2 * seg, subs,
                        nseg.bit_length() - 1)
+
+
+# ------------------------------------------------- the EC batcher
+
+
+def _native_parity(codec, cells):
+    b, k, su = cells.shape
+    flat = np.ascontiguousarray(cells.transpose(1, 0, 2)).reshape(k, -1)
+    return native.rs_encode(codec.matrix, flat).reshape(
+        codec.m, b, su).transpose(1, 0, 2)
+
+
+def test_batcher_on_the_card_equals_native_on_a_transposed_view(cuda):
+    codec = load_codec({"plugin": "rs_tpu", "k": "8", "m": "3"}, device=cuda)
+    rng = np.random.default_rng(3)
+    shard_major = rng.integers(0, 256, (8, 64, 4096), dtype=np.uint8)
+    view = shard_major.transpose(1, 0, 2)  # the RMW path's (T, k, su)
+    gf0, crc0 = kernels.GF_MATMUL.launches, kernels.CRC32C.launches
+
+    async def t():
+        b = ECBatcher(conf={"osd_ec_cold_shape_bytes": 0})
+        parity, crcs = await b.encode_cells(codec, view)
+        every = np.concatenate([view, parity], axis=1)
+        present = (0, 2, 3, 4, 5, 7, 8, 9)
+        rebuilt = await b.decode_cells(
+            codec, present, (1, 6, 10),
+            np.ascontiguousarray(every[:, list(present)]))
+        return parity, crcs, every, rebuilt
+
+    parity, crcs, every, rebuilt = asyncio.run(t())
+    assert kernels.GF_MATMUL.launches == gf0 + 2
+    assert kernels.CRC32C.launches == crc0 + 1
+    assert parity.dtype == np.uint8 and crcs.dtype == np.uint32
+    assert np.array_equal(parity, _native_parity(codec, view))
+    assert np.array_equal(crcs, native.crc32c_batch(
+        np.ascontiguousarray(every).reshape(-1, 4096)).reshape(64, 11))
+    assert np.array_equal(rebuilt, every[:, [1, 6, 10]])
+
+
+def test_two_buckets_in_flight_stay_exact_on_separate_streams(cuda):
+    codecs = [load_codec({"plugin": "rs_tpu", "k": str(k), "m": str(m)},
+                         device=cuda) for k, m in ((8, 3), (4, 2))]
+    streams = {}
+    for codec in codecs:
+        real = codec.encode_crc_batch
+        real(torch.zeros((1, codec.k, 1024), dtype=torch.int32,
+                         device=cuda), 4096)  # build kernels and operands
+
+        def held(x, su, real=real, codec=codec):
+            out = real(x, su)
+            streams.setdefault(codec.k, set()).add(
+                torch.cuda.current_stream().cuda_stream)
+            time.sleep(0.2)  # keep this bucket in flight
+            return out
+
+        codec.encode_crc_batch = held
+    rng = np.random.default_rng(4)
+    cells = [rng.integers(0, 256, (32, c.k, 4096), dtype=np.uint8)
+             for c in codecs]
+
+    async def t():
+        b = ECBatcher()
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[b.encode_cells(c, x)
+                                      for c, x in zip(codecs, cells)])
+        return outs, time.perf_counter() - t0
+
+    outs, secs = asyncio.run(t())
+    assert secs < 0.38  # the two 0.2 s holds overlapped
+    assert len(streams[8] | streams[4]) == 2  # one stream per thread
+    for codec, x, (parity, crcs) in zip(codecs, cells, outs):
+        assert np.array_equal(parity, _native_parity(codec, x))
+        every = np.concatenate([x, parity], axis=1)
+        assert np.array_equal(crcs, native.crc32c_batch(
+            every.reshape(-1, 4096)).reshape(32, codec.k + codec.m))
+
+
+def test_held_result_is_not_overwritten_by_later_batches(cuda):
+    codec = load_codec({"plugin": "rs_tpu", "k": "8", "m": "3"}, device=cuda)
+    rng = np.random.default_rng(5)
+
+    async def t():
+        b = ECBatcher()
+        first = rng.integers(0, 256, (64, 8, 4096), dtype=np.uint8)
+        parity, crcs = await b.encode_cells(codec, first)
+        held = parity.copy(), crcs.copy()
+        for _ in range(8):
+            later = rng.integers(0, 256, (64, 8, 4096), dtype=np.uint8)
+            p2, _ = await b.encode_cells(codec, later)
+            assert not np.shares_memory(p2, parity)
+        return first, parity, crcs, held
+
+    first, parity, crcs, held = asyncio.run(t())
+    assert np.array_equal(parity, held[0]) and np.array_equal(crcs, held[1])
+    assert np.array_equal(parity, _native_parity(codec, first))
