@@ -8,12 +8,19 @@ reference so each module's counterpart is easy to find:
                 and the int32-carries-uint32 packed-word convention
   kernels.py    nvcc build + ctypes binding of csrc/*.cu, launch counters
   csrc/         hand-written CUDA kernels for sm_90a
-  ops/          gf8 (host field math), rs (GF(2^8) matmul), crc32c
+  ops/          gf8 (host field math), rs (GF(2^8) matmul), crc32c,
+                crush (Jenkins hash, crush_ln, straw2)
   models/       datapath: the batched EC write / repair step
   ec/           codec seam: ErasureCode base, registry, rs_tpu, isa
   checksum/     the BlueStore Checksummer (crc32c family, xxhash)
   cluster/      the OSD's ECBatcher and stripe layout
-  utils/        config schema, perf counters, fault injection
+  placement/    CRUSH maps and host rule engine, the bulk rule engine,
+                OSDMap, map encoding, crushtool compiler, tester, and the
+                batched placement resolver
+  utils/        config schema, perf counters, fault injection, denc
   native/       the C++ host core (g++ at first use, ctypes)
-  convert.py    hands the reference's state (matrix, stripe data) over
+  convert.py    hands the reference's state (matrix, stripe data, CRUSH
+                and OSD maps) over
 """
+
+from . import placement  # noqa: F401,E402

@@ -2,8 +2,9 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point. At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``ceph_tpu_torch/build/`` (named by a digest of its source and flags, so a
-changed source is rebuilt) and loaded with ``ctypes``. Pointers and the
+``ceph_tpu_torch/build/`` (named by a digest of its source, every
+``csrc`` header it includes and the flags, so a changed source or header
+is rebuilt) and loaded with ``ctypes``. Pointers and the
 stream pass as ``c_void_p``; the stream is PyTorch's current one. The C
 entry point returns ``cudaGetLastError()`` and the wrapper raises on a
 nonzero value.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,7 +48,9 @@ CRC_MAX_SEG = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -78,10 +82,24 @@ class Kernel:
         self._fn = None
         self._lock = threading.Lock()
 
+    def files(self) -> list[Path]:
+        """The source and every header it includes from ``csrc``,
+        transitively, in the order first met."""
+        seen, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in seen:
+                continue
+            seen.append(path)
+            todo += [CSRC / name for name in _INCLUDE.findall(path.read_text())
+                     if (CSRC / name).is_file()]
+        return seen
+
     @property
     def library(self) -> Path:
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            b"".join(p.read_bytes() for p in self.files())
+            + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD / f"{self.source.stem}-{digest}.so"
 
@@ -141,7 +159,11 @@ GF_MATMUL = Kernel("gf_matmul", "gf_matmul.cu", "gf_matmul_launch",
                    [_P, _P, _P, _I, _I, _I, _L, _P])
 CRC32C = Kernel("crc32c", "crc32c.cu", "crc32c_launch",
                 [_P, _I, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _P])
-KERNELS = (GF_MATMUL, CRC32C)
+STRAW2 = Kernel("straw2", "straw2.cu", "straw2_launch",
+                [_P, _P, _P, _I, _P, _L, _U, _P, _P, _P])
+CRUSH_RULE = Kernel("crush_rule", "crush_rule.cu", "crush_rule_launch",
+                    [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P])
+KERNELS = (GF_MATMUL, CRC32C, STRAW2, CRUSH_RULE)
 
 
 def build_all() -> float:
@@ -227,4 +249,92 @@ def crc32c(src0: torch.Tensor, src1: torch.Tensor | None, frags: torch.Tensor,
                   None if src1 is None else src1.data_ptr(), r1, b, w,
                   out.data_ptr(), frags.data_ptr(), zcols.data_ptr(), seg,
                   subs, log_nseg)
+    return out
+
+
+#: Rows a crush_rule.cu thread holds (its kMaxRep): rs codecs take
+#: k + m <= 256.
+CRUSH_MAX_REP = 256
+#: The rule operand of crush_rule.cu (its struct Rule), in order.
+CRUSH_RULE_PARAMS = ("root_bno", "firstn", "leaf", "numrep", "choose_type",
+                     "tries", "recurse_tries", "vary_r", "stable",
+                     "max_depth", "nb", "mi", "nw")
+
+
+def _check_vec(t: torch.Tensor, dtype, what: str, device=None) -> None:
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{what} must be a CUDA tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def straw2(items: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+           xs: torch.Tensor, r: int, tables: torch.Tensor) -> torch.Tensor:
+    """One straw2 choose per x on the kernel: items/ids (n,) int32,
+    weights (n,) int32 holding uint32 16.16, xs (N,) int32 holding uint32,
+    tables (514,) int64 (ops/crush.py kernel_tables) -> (N,) int32."""
+    dev = xs.device
+    for t, what in ((items, "items"), (ids, "ids"), (weights, "weights"),
+                    (xs, "xs")):
+        _check_vec(t, torch.int32, what, dev)
+        if t.dim() != 1:
+            raise ValueError(f"{what} must be 1-D, got {tuple(t.shape)}")
+    _check_vec(tables, torch.int64, "tables", dev)
+    n = items.shape[0]
+    if n < 1 or ids.shape[0] != n or weights.shape[0] != n:
+        raise ValueError(f"bucket of {n} items, {ids.shape[0]} ids and "
+                         f"{weights.shape[0]} weights")
+    if tables.shape != (514,):
+        raise ValueError(f"tables {tuple(tables.shape)} are not (514,)")
+    out = torch.empty(xs.shape[0], dtype=torch.int32, device=dev)
+    STRAW2.launch(dev, items.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+                  n, xs.data_ptr(), xs.shape[0], r & 0xFFFFFFFF,
+                  tables.data_ptr(), out.data_ptr())
+    return out
+
+
+def crush_rule(items: torch.Tensor, weights: torch.Tensor,
+               sizes: torch.Tensor, btype: torch.Tensor,
+               dev_weights: torch.Tensor, xs: torch.Tensor,
+               tables: torch.Tensor, params: dict,
+               draws: torch.Tensor | None = None) -> torch.Tensor:
+    """crush_do_rule for every x on the kernel: the CompiledMap's items
+    and weights (nb, mi) int32 (weights holding uint32 16.16), sizes and
+    btype (nb,) int32, the reweight vector (nw,) int32 holding uint32,
+    xs (N,) int32 holding uint32, tables as ``straw2``; ``params`` gives
+    every name of CRUSH_RULE_PARAMS but nb, mi and nw -> (N, numrep)
+    int32 rows. ``draws``, a (1,) int64 tensor on the card, if given,
+    gains the number of straw2 draws the launch made."""
+    dev = xs.device
+    for t, what in ((items, "items"), (weights, "weights"), (sizes, "sizes"),
+                    (btype, "btype"), (dev_weights, "dev_weights"),
+                    (xs, "xs")):
+        _check_vec(t, torch.int32, what, dev)
+    _check_vec(tables, torch.int64, "tables", dev)
+    if items.dim() != 2 or weights.shape != items.shape:
+        raise ValueError(f"items {tuple(items.shape)} and weights "
+                         f"{tuple(weights.shape)} must be one (nb, mi)")
+    nb, mi = items.shape
+    if (sizes.shape != (nb,) or btype.shape != (nb,) or dev_weights.dim() != 1
+            or xs.dim() != 1 or tables.shape != (514,)):
+        raise ValueError("CRUSH operands do not fit the kernel")
+    numrep = params["numrep"]
+    if not 1 <= numrep <= CRUSH_MAX_REP:
+        raise ValueError(f"numrep {numrep} outside 1..{CRUSH_MAX_REP}")
+    vals = dict(params, nb=nb, mi=mi, nw=dev_weights.shape[0])
+    packed = (ctypes.c_int * len(CRUSH_RULE_PARAMS))(
+        *[int(vals[k]) for k in CRUSH_RULE_PARAMS])
+    if draws is not None:
+        _check_vec(draws, torch.int64, "draws", dev)
+        if draws.shape != (1,):
+            raise ValueError(f"draws {tuple(draws.shape)} is not (1,)")
+    out = torch.empty((xs.shape[0], numrep), dtype=torch.int32, device=dev)
+    CRUSH_RULE.launch(dev, items.data_ptr(), weights.data_ptr(),
+                      sizes.data_ptr(), btype.data_ptr(),
+                      dev_weights.data_ptr(), xs.data_ptr(), xs.shape[0],
+                      tables.data_ptr(), out.data_ptr(), packed,
+                      None if draws is None else draws.data_ptr())
     return out

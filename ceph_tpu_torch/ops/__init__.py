@@ -1,4 +1,4 @@
-"""Math kernels: GF(2^8) / Reed-Solomon and CRC32C.
+"""Math kernels: GF(2^8) / Reed-Solomon, CRC32C and CRUSH straw2.
 
 Each device function ships in two forms, chosen by the device of the
 tensor it is given:

@@ -5,4 +5,6 @@ package's ``ceph_tpu/utils``, copied as the port reaches them):
   (the md_config_t / ConfigProxy role).
 - ``perf`` — counters registry (the PerfCounters role).
 - ``fault`` — fault injection points (the FaultInjector role).
+- ``denc`` — little-endian wire encoding (the denc.h role), for the
+  placement maps.
 """

@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version on the card (exact equality: the
-functions are integer-only), drives the main path at full width -- the
+Builds the CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc (one nvcc
+per source, all started together), holds each against its plain PyTorch
+version on the card (exact equality: the functions are integer-only),
+drives the main path at full width -- the
 batched EC write and repair steps on k=8, m=3, 512 KiB chunks (4 MiB
 stripes), B=256 stripes (1 GiB) per step, the rs_tpu codec and the
 crc32c Checksummer over 16,384 x 64 KiB blobs -- and checks the results,
-shows that the main path launched both kernels, times each kernel at the
+shows that the main path launched both EC kernels, times each at the
 write, repair and Checksummer shapes, its plain version and each step with
 CUDA events, and checks from a torch.profiler trace that the write step
 (which CRCs data and parity where they lie) launches no copy kernel.
@@ -27,6 +28,23 @@ CRC32C; each mix prints its throughput, per-submission latency, batch
 occupancy, flush reasons and kernel launches, beside the card's pinned
 copy rates, each mix's copy bound and a torch.profiler split of
 ``write_4m`` (HtoD / kernels / DtoH device time, idle share).
+
+Phase ``placement`` drives the CRUSH placement slice on the card: the
+straw2 kernel against its plain version at the edges (one item, a ragged
+batch, zero and equal weights, hash ids apart from items, the crush_ln
+wrap at u = 0xffff, a bucket larger than one shared-memory tile) and at
+65,536 inputs over 1,000 items; BASELINE.json config 5 (10 M inputs over
+a flat 1,000-OSD straw2 bucket, weights from seed 11 as bench.py draws
+them), exact against the C++ host core on 100,000 of them; the rule
+kernel against its plain version, then 10 M inputs through each of a
+replicated (chooseleaf firstn host, 3) and an EC k=8, m=3 rule (chooseleaf
+indep host, 11) on a 50 x 20-OSD tree with 20 OSDs out and 20 at half
+weight, exact against ``CrushMap.do_rule`` on 10,000 inputs, and the
+tester's utilization; and a ``PlacementResolver`` on the card over an
+OSDMap of that cluster (a replicated pool of 32,768 PGs and an EC pool of
+8,192: ~100 PG shards per OSD, Ceph's mon_target_pg_per_osd), prewarmed,
+then 10 more OSDs marked out and a storm of misses over every PG, each
+row held against ``OSDMap.pg_to_up_acting_full``.
 
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
@@ -49,6 +67,16 @@ import torch
 #: Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1.979e15
+#: 32-bit integer ALU rate of one H100 SXM: 132 SMs x 64 lanes x 1.98 GHz.
+INT32_OPS_PER_S = 16.7e12
+#: Integer-ALU instructions of one straw2 draw, counted in the SASS of
+#: csrc/straw2.cu as nvcc 12.8 builds it for sm_90a (cuobjdump -sass),
+#: on the path a draw takes when 2^48 - ln exceeds 32 bits (nearly every
+#: draw: the 64-bit division's software routine): IADD3 62, LOP3 50, SHF
+#: 35, ISETP 13, SEL 8, LEA 3, FLO 1. The 66 IMADs of the path run on the
+#: FMA pipe and are not counted, nor is crush_rule.cu's descent around
+#: its draws, so for both kernels the bound is a floor.
+STRAW2_OPS_PER_DRAW = 172
 
 KIB = 1024
 MAIN_B, MAIN_K, MAIN_M, MAIN_CHUNK = 256, 8, 3, 512 * KIB
@@ -64,6 +92,31 @@ ECB_MIXES = {"write_4m": (256, 128, 16), "rmw_4k": (8192, 1, 64),
              "recovery": (256, 128, 16)}
 ECB_WANT, ECB_READ_PRESENT, ECB_READ_WANT = (1, 6), (0, 2, 3, 4, 5, 6, 7, 8), (1, 9)
 COPY_BYTES = 256 * 1024 * KIB  # pinned copy-rate probe, each way
+#: Host seconds of idle at each end of a profiled run, tried in turn until
+#: the trace holds every launch. On the card torch.profiler drops device
+#: records that land outside its capture window (kineto's log counts them
+#: "Out-of-range") although they start well under a millisecond after
+#: their launch calls: the window's clock and the records' disagree, by
+#: over 0.5 s late in this script, where no pad under 2 s holds every
+#: K3/K4 record; even 2 s missed two records of 30 once.
+PROFILE_PADS_S = (0.05, 0.5, 2.0)
+#: What ``profiled`` says of a trace's capture, printed beside a time.
+PROFILE_CLOCK = ("launches", "caught", "pad_s", "caught_by_pad",
+                 "launch_to_device_ms")
+#: Host API calls that launch a kernel, as the profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+#: The placement phase: BASELINE.json config 5 / bench.py config5_straw2
+#: (10 M inputs, a flat 1,000-OSD straw2 bucket, weights and inputs from
+#: seed 11, r = 0), the 100,000-input host check, and a 50-host x 20-OSD
+#: cluster with 20 OSDs out and 20 at half weight; its pools as
+#: (pool id, size, pg_num, rule): ~100 PG shards per OSD.
+PL_OSDS, PL_SEED, PL_X, PL_SUBSET = 1000, 11, 10_000_000, 100_000
+PL_HOSTS, PL_PER_HOST, PL_OUT, PL_HALF, PL_INC_OUT = 50, 20, 20, 20, 10
+PL_CHECK_X, PL_ORACLE_X = 65_536, 10_000
+PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
+PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 
 
 def emit(obj: dict) -> None:
@@ -100,36 +153,93 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_steps(step, reps: int = 10) -> dict:
-    """Run ``step`` ``reps`` times back to back under torch.profiler: the
-    device time per step of each kernel, and the share of the window from
-    the first to the last device event in which the card was idle (null
-    when the profiler records no device events)."""
+def time_once(fn) -> tuple[float, object]:
+    """Milliseconds of one call of ``fn`` on the card (CUDA events) and
+    what it returned."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def profiled(run) -> tuple[list, dict]:
+    """Run ``run()`` under torch.profiler with the capture window padded
+    (PROFILE_PADS_S) until the trace holds one device record per kernel
+    launch the host made, else keep the trace that held most -> (its
+    device events, {launches, kernel records caught, the pad, the kernel
+    records caught at each pad tried, the first device record's start
+    minus the first launch call's start in ms: under a millisecond when
+    the card's and the host's clocks agree})."""
     from torch.profiler import ProfilerActivity, profile
 
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    caught, best = [], None
+    for pad in PROFILE_PADS_S:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [e for e in prof.events() if e.device_type == cuda]
+        calls = [e.time_range.start for e in prof.events()
+                 if e.device_type == cpu and e.name in LAUNCH_CALLS]
+        kernels = sum(not e.name.lower().startswith(("memcpy", "memset"))
+                      for e in events)
+        caught.append(kernels)
+        if best is None or kernels > best[1]["caught"]:
+            lag = (min(e.time_range.start for e in events) - min(calls)
+                   if events and calls else None)
+            best = events, {"launches": len(calls), "caught": kernels,
+                            "pad_s": pad, "launch_to_device_ms":
+                            None if lag is None else lag / 1e3}
+        if kernels == len(calls):
+            break
+    best[1]["caught_by_pad"] = caught
+    return best
+
+
+def kernel_name(e) -> str:
+    name = e.name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0].split("<")[0].split("::")[-1]
+
+
+def profile_steps(step, reps: int = 10) -> dict:
+    """Run ``step`` ``reps`` times back to back under torch.profiler
+    (``profiled``): each kernel's device ms per step, and the share of
+    the window from the first to the last device event in which the card
+    was idle (null when no record was caught). A kernel's ms per step is
+    the mean of its caught records times its launches per step (its
+    records over ``reps``, rounded), so a dropped record does not lower
+    it; the idle share counts only caught records."""
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0].split("<")[0]
-            name = name.split("::")[-1]
-            per_kernel[name] = per_kernel.get(name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / reps
+    events, clock = profiled(lambda: [step() for _ in range(reps)])
+    spans = [e.time_range for e in events]
+    durations = {}
+    for e in events:
+        durations.setdefault(kernel_name(e), []).append(
+            (e.time_range.end - e.time_range.start) / 1e3)
+    per_kernel = {name: statistics.fmean(d) * max(1, round(len(d) / reps))
+                  for name, d in durations.items()}
     if not spans:
-        return {"device_events": 0, "idle_share": None, "ms_per_step": {}}
+        return {"device_events": 0, **clock, "idle_share": None,
+                "ms_per_step": {}}
     window = max(s.end for s in spans) - min(s.start for s in spans)
     busy = sum(s.end - s.start for s in spans)
-    return {"device_events": len(spans), "idle_share": 1 - busy / window,
-            "window_ms": window / 1e3, "ms_per_step": per_kernel}
+    return {"device_events": len(spans), **clock,
+            "idle_share": 1 - busy / window, "window_ms": window / 1e3,
+            "ms_per_step": per_kernel}
+
+
+def device_ms(prof: dict) -> float | None:
+    """Device ms per step of a profiled step, null when no record of it
+    was caught."""
+    return sum(prof["ms_per_step"].values()) if prof["ms_per_step"] else None
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -187,22 +297,16 @@ def span_union(spans) -> float:
 
 
 def profile_split(run) -> dict:
-    """Run ``run()`` once under torch.profiler: device ms of host-to-
-    device copies, kernels and device-to-host copies, and the idle share
-    of the window from the first to the last device event (the union of
-    every stream's events is the busy time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    """Run ``run()`` once under torch.profiler (``profiled``): device ms
+    of host-to-device copies, kernels and device-to-host copies, and the
+    idle share of the window from the first to the last device event
+    (the union of every stream's events is the busy time), over the
+    records caught."""
+    events, clock = profiled(run)
     split = {"htod_ms": 0.0, "kernels_ms": 0.0, "dtoh_ms": 0.0,
              "other_ms": 0.0}
     spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
         name = e.name.lower()
@@ -214,7 +318,7 @@ def profile_split(run) -> dict:
         return {"device_events": 0, "idle_share": None, **split}
     window = max(b for _, b in spans) - min(a for a, _ in spans)
     return {"device_events": len(spans), "window_ms": window / 1e3,
-            "idle_share": 1 - span_union(spans) / window, **split}
+            **clock, "idle_share": 1 - span_union(spans) / window, **split}
 
 
 def drive(submit, n: int, concurrency: int, state: dict):
@@ -370,7 +474,8 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
               f"write_4m parity of submission {i}")
         check_crcs(np.concatenate([wdata[i].transpose(1, 0, 2), wparity[i]],
                                   axis=1), out[i][1], f"write_4m {i}")
-    check(all(v > 0 for v in lines["write_4m"]["launches"].values()),
+    check(all(lines["write_4m"]["launches"][k] > 0
+              for k in ("gf_matmul", "crc32c")),
           f"write_4m launches {lines['write_4m']['launches']}")
     emit(lines["write_4m"])
 
@@ -472,11 +577,289 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
         check(err == 0, f"{key}: kernel and plain differ by {err}")
         ms, plain_ms = time_ms(kernel, reps=50), time_ms(plain)
         b_ms, b_by = bound(nbytes, ops)
-        device_ms = sum(profile_steps(kernel, reps=20)["ms_per_step"].values())
+        prof = profile_steps(kernel, reps=20)
         timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "max_abs_err": err,
-                      "device_ms": device_ms}
-        emit({"phase": "time", "what": key, **timed[key]})
+                      "device_ms": device_ms(prof)}
+        emit({"phase": "time", "what": key, **timed[key],
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}})
+    return {"launches": launches, "timed": timed}
+
+
+def rule_bound(draws: int, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) for ``draws`` straw2 draws on the int32 ALUs
+    (STRAW2_OPS_PER_DRAW each at INT32_OPS_PER_S), or ``nbytes`` over
+    HBM, whichever is larger."""
+    t_ops = draws * STRAW2_OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def placement_phase(dev) -> dict:
+    """Drive the CRUSH placement slice on the card (see the module
+    docstring), print one line per step and return the kernels' launch
+    counts on its main path and their timed entries."""
+    import os
+
+    from ceph_tpu_torch import kernels, native
+    from ceph_tpu_torch.ops import crush
+    from ceph_tpu_torch.placement import bulk, tester
+    from ceph_tpu_torch.placement import crushmap as cm
+    from ceph_tpu_torch.placement import resolver as rmod
+    from ceph_tpu_torch.placement.osdmap import Incremental, OSDMap, Pool
+
+    threads = os.cpu_count() or 1
+
+    def t32(a) -> torch.Tensor:  # uint32/int32 numpy -> int32 on the card
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                                .copy()).to(dev)
+
+    # config 5's inputs, drawn as bench.py draws them
+    rng = np.random.default_rng(PL_SEED)
+    items = np.arange(PL_OSDS, dtype=np.int32)
+    weights = rng.integers(1, 4 * 0x10000, PL_OSDS, dtype=np.uint32)
+    xs = rng.integers(0, 2**32, PL_X, dtype=np.uint32)
+
+    # ---- straw2 kernel against its plain version, edges included
+    erng = np.random.default_rng(20261017)
+    ids = erng.integers(-2**31, 2**31, PL_OSDS).astype(np.int32)
+    zeq = weights.copy()
+    zeq[::7] = 0
+    zeq[1::5] = 0x10000
+    wide = erng.integers(1, 4 * 0x10000, 2500, dtype=np.uint32)
+    probe = torch.arange(0, 1 << 24, dtype=torch.int64, device=dev)
+    wrap = probe[(crush.hash32_3(probe, int(items[0]), 3) & 0xFFFF)
+                 == 0xFFFF][:256].cpu().numpy().astype(np.uint32)
+    check(len(wrap) > 0, "inputs reaching u = 0xffff")
+    sub = xs[:PL_CHECK_X]
+    edge = {  # name: (items, ids, weights, xs, r)
+        "65536x1000": (items, items, weights, sub, 0),
+        "n1": (items[:1], items[:1], weights[:1], sub[:5000], 1),
+        "ragged": (items, items, weights, xs[:PL_CHECK_X + 77], 2),
+        "zero_and_equal": (items, items, zeq, sub, 0),
+        "ids_not_items": (items, ids, weights, sub, 5),
+        "u_0xffff": (items, items, weights, np.concatenate([wrap, sub[:999]]),
+                     3),
+        "tiles_2500": (np.arange(2500, dtype=np.int32),
+                       np.arange(2500, dtype=np.int32), wide, sub[:20000], 0),
+        "all_zero": (items[:5], items[:5], np.zeros(5, np.uint32), sub[:999],
+                     0),
+    }
+    errs = {}
+    for name, (it, hid, w, x, r) in edge.items():
+        args = (t32(it), t32(hid), t32(w), t32(x), r)
+        got = crush.straw2_choose(*args)
+        errs[name] = max_abs_err(got, crush.straw2_choose_plain(*args))
+        check(errs[name] == 0, f"straw2 {name}: kernel and plain differ by "
+                               f"{errs[name]}")
+    del probe
+    emit({"phase": "placement_straw2_vs_plain", "cases": list(edge),
+          "u_0xffff_inputs": len(wrap), "max_abs_err": max(errs.values())})
+
+    # ---- the rule kernel against its plain version
+    tree = cm.build_hierarchy(osds_per_host=PL_PER_HOST, n_hosts=PL_HOSTS)
+    tree.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    tree.add_rule(cm.ec_rule(1, root=-1, failure_domain_type=1))
+    rw = np.full(PL_OSDS, 0x10000, dtype=np.uint32)
+    picked = erng.choice(PL_OSDS, PL_OUT + PL_HALF + PL_INC_OUT,
+                         replace=False)
+    out_osds = picked[:PL_OUT]
+    half_osds = picked[PL_OUT:PL_OUT + PL_HALF]
+    inc_out = [int(o) for o in picked[PL_OUT + PL_HALF:]]
+    rw[out_osds] = 0
+    rw[half_osds] = 0x8000
+    comp = bulk.CompiledMap(tree)
+    arrays = comp.arrays_on(dev)
+    rw_t, xs_t, sub_t = t32(rw), t32(xs), t32(sub)
+    rules = {name: comp.compile_rule(rule, numrep)
+             for name, (rule, numrep) in PL_RULES.items()}
+
+    def rows_kernel(name, x):
+        return bulk.rule_rows(arrays, rw_t, x, rules[name],
+                              PL_RULES[name][1], comp.max_depth)
+
+    def rows_plain(name, x, step=1 << 18):
+        return torch.cat([bulk.rule_rows_plain(
+            arrays, rw_t, x[lo:lo + step], rules[name], PL_RULES[name][1],
+            comp.max_depth) for lo in range(0, x.shape[0], step)])
+
+    plain_rows = {name: rows_plain(name, sub_t) for name in PL_RULES}
+    for name in PL_RULES:
+        errs[name] = max_abs_err(rows_kernel(name, sub_t), plain_rows[name])
+        check(errs[name] == 0, f"crush_rule {name}: kernel and plain differ "
+                               f"by {errs[name]}")
+    emit({"phase": "placement_rule_vs_plain", "rules": list(PL_RULES),
+          "inputs": PL_CHECK_X, "out": PL_OUT, "half_weight": PL_HALF,
+          "max_abs_err": max(errs[name] for name in PL_RULES)})
+
+    # ---- times: config 5 and each rule at full size, at the check shape
+    # and at the resolver's batch (one size target of pgids); the rule
+    # kernel's draws counted by the kernel itself. Each case's kernel
+    # output is held against its plain version's, which is timed in the
+    # same call. The plain rule engine takes minutes at 10 M inputs: at
+    # full size the rule kernel's first PL_CHECK_X rows are held against
+    # the plain rows of the check above (head_max_abs_err), and no plain
+    # time is taken
+    items_t, w_t = t32(items), t32(weights)
+    timed = {}
+
+    def time_case(key, nx, kernel, plain, draws, nbytes, reps=5,
+                  head_ref=None):
+        got = kernel()
+        ms = time_ms(kernel, reps=reps, warmup=0)
+        b_ms, b_by = rule_bound(draws, nbytes)
+        prof = profile_steps(kernel, reps=3)
+        timed[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "draws": draws,
+                      "device_ms": device_ms(prof)}
+        if plain is not None:
+            timed[key]["plain_ms"], want = time_once(plain)
+            timed[key]["max_abs_err"] = max_abs_err(got, want)
+        else:
+            timed[key]["max_abs_err"] = None
+            timed[key]["head_max_abs_err"] = max_abs_err(
+                got[:head_ref.shape[0]], head_ref)
+            timed[key]["head_inputs"] = head_ref.shape[0]
+        err = max(timed[key]["max_abs_err"] or 0,
+                  timed[key].get("head_max_abs_err", 0))
+        check(err == 0, f"{key}: kernel and plain differ by {err}")
+        del got
+        emit({"phase": "time", "what": key, "inputs": nx, **timed[key],
+              "Mobj_per_s": nx / ms / 1e3, "share_of_bound": b_ms / ms,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}})
+
+    for key, x_t in (("straw2_config5", xs_t), ("straw2_65536", sub_t)):
+        n = x_t.shape[0]
+        time_case(key, n,
+                  lambda x=x_t: crush.straw2_choose(items_t, items_t, w_t, x,
+                                                    0),
+                  lambda x=x_t: crush.straw2_choose_plain(items_t, items_t,
+                                                          w_t, x, 0),
+                  n * PL_OSDS, 12.0 * PL_OSDS + 8.0 * n)
+    batch = t32(xs[PL_CHECK_X:PL_CHECK_X + 64])
+    for name, (rule, numrep) in PL_RULES.items():
+        for size, x_t in (("full", xs_t), ("65536", sub_t), ("64", batch)):
+            key = f"crush_rule_{name}_{size}"
+            count = torch.zeros(1, dtype=torch.int64, device=dev)
+            bulk.rule_rows(arrays, rw_t, x_t, rules[name], numrep,
+                           comp.max_depth, draws=count)
+            check(int(count.item()) >= x_t.shape[0] * numrep,
+                  f"{key}: the kernel counted {int(count.item())} draws")
+            nbytes = (arrays[0].numel() * 8.0 + 8.0 * arrays[2].numel()
+                      + 4.0 * PL_OSDS + 4.0 * x_t.shape[0] * (1 + numrep))
+            time_case(key, x_t.shape[0],
+                      lambda n=name, x=x_t: rows_kernel(n, x),
+                      None if size == "full" else
+                      lambda n=name, x=x_t: rows_plain(n, x),
+                      int(count.item()), nbytes,
+                      reps=3 if size == "full" else 20,
+                      head_ref=plain_rows[name] if size == "full" else None)
+    timed["placement_checks"] = errs
+
+    # ---- the main path: config 5, the rule engine, the tester, the
+    # resolver, all through the numpy/asyncio surfaces a user calls
+    om = OSDMap(tree, PL_OSDS)
+    for o in out_osds:
+        om.osds[int(o)].weight = 0
+    for o in half_osds:
+        om.osds[int(o)].weight = 0x8000
+    for name, (pid, size, pg_num, rule) in PL_POOLS.items():
+        om.add_pool(Pool(id=pid, name=name, size=size, min_size=size - 2
+                         if size > 3 else 2, pg_num=pg_num, crush_rule=rule,
+                         type="erasure" if size > 3 else "replicated"))
+    resolver = rmod.PlacementResolver(batch=True)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    placed = crush.straw2_bulk(items, weights, xs, r=0)
+    bulk_s = time.perf_counter() - t0
+    rows, rule_s = {}, {}
+    for name, (rule, numrep) in PL_RULES.items():
+        t0 = time.perf_counter()
+        rows[name] = bulk.do_rule_bulk(comp, rule, xs, numrep, rw)
+        rule_s[name] = time.perf_counter() - t0
+    reports = {name: tester.test_rule(tree, rule, numrep, n_inputs=PL_X,
+                                      weights=rw, device=True)
+               for name, (rule, numrep) in PL_RULES.items()}
+    k4_before = kernels.CRUSH_RULE.launches
+    t0 = time.perf_counter()
+    warmed = asyncio.run(resolver.prewarm(om, [p[0] for p in
+                                               PL_POOLS.values()]))
+    prewarm_s = time.perf_counter() - t0
+    stats_warm = resolver.stats.dump()
+    om.apply_incremental(Incremental(epoch=om.epoch + 1,
+                                     weights={o: 0 for o in inc_out}))
+    pgids = {p[0]: [(p[0], ps) for ps in range(p[2])]
+             for p in PL_POOLS.values()}
+    target = resolver._target()
+
+    async def storm() -> dict:
+        """Misses over every PG of both pools, in waves of one size
+        target per pool (what concurrent ops of that many clients ask)."""
+        got = {}
+        waves = max(len(v) for v in pgids.values()) // target
+        for w in range(waves):
+            wave = [g for v in pgids.values()
+                    for g in v[w * target:(w + 1) * target]]
+            for g, row in zip(wave, await asyncio.gather(
+                    *(resolver.afull(om, g) for g in wave))):
+                got[g] = row
+        return got
+
+    t0 = time.perf_counter()
+    served = asyncio.run(storm())
+    storm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    k4_resolver = kernels.CRUSH_RULE.launches - k4_before
+    stats = resolver.stats.dump()
+    for name in ("straw2", "crush_rule"):
+        check(launches[name] > 0, f"placement launched {name} "
+                                  f"{launches[name]} times")
+
+    # ---- checks against the host
+    t0 = time.perf_counter()
+    want = native.straw2_bulk(items, weights, xs[:PL_SUBSET],
+                              threads=threads)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(placed[:PL_SUBSET], want),
+          "config 5 against the host core")
+    for name, (rule, numrep) in PL_RULES.items():
+        for i in range(PL_ORACLE_X):
+            row = tree.do_rule(rule, int(xs[i]), numrep, rw)
+            check(list(rows[name][i]) == row + [cm.ITEM_NONE] * (
+                numrep - len(row)), f"{name} x={xs[i]} against do_rule")
+    check(k4_resolver >= stats["placement_batch_lookups"] > 0,
+          f"{k4_resolver} rule launches for "
+          f"{stats['placement_batch_lookups']} device batches")
+    check(warmed == sum(len(v) for v in pgids.values()), "prewarm")
+    check(len(served) == warmed, "every PG served")
+    for g, row in served.items():
+        check(tuple(row) == tuple(om.pg_to_up_acting_full(g)),
+              f"resolver row of {g}")
+    emit({"phase": "placement_config5", "inputs": PL_X, "osds": PL_OSDS,
+          "seed": PL_SEED, "wall_s": bulk_s, "Mobj_per_s": PL_X / bulk_s
+          / 1e6, "host_subset": PL_SUBSET, "host_threads": threads,
+          "host_Mobj_per_s": PL_SUBSET / host_s / 1e6, "exact": True})
+    for name, (rule, numrep) in PL_RULES.items():
+        rep = reports[name]
+        emit({"phase": "placement_rule", "rule": name, "numrep": numrep,
+              "inputs": PL_X, "wall_s": rule_s[name],
+              "Mobj_per_s": PL_X / rule_s[name] / 1e6,
+              "oracle_inputs": PL_ORACLE_X, "exact": True,
+              "tester_max_deviation": rep.max_deviation(tree),
+              "tester_bad_mappings": len(rep.bad_mappings)})
+    emit({"phase": "placement_resolver", "pgids": warmed,
+          "pools": {k: {"size": v[1], "pg_num": v[2]}
+                    for k, v in PL_POOLS.items()},
+          "prewarm_s": prewarm_s, "prewarm_pgids_per_s": warmed / prewarm_s,
+          "marked_out": len(inc_out), "storm_s": storm_s,
+          "storm_pgids_per_s": len(served) / storm_s,
+          "counters_after_prewarm": stats_warm, "counters": stats,
+          "crush_rule_launches": k4_resolver,
+          "exact": True})
+    emit({"phase": "placement_launches", **launches})
+    del placed, rows, reports, served, plain_rows
     return {"launches": launches, "timed": timed}
 
 
@@ -600,8 +983,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     emit({"phase": "main_path_launches", **launches})
-    for k, n in launches.items():
-        check(n > 0, f"main path launched {k} {n} times")
+    for k in ("gf_matmul", "crc32c"):
+        check(launches[k] > 0, f"main path launched {k} {launches[k]} times")
 
     seed_cell = crc_ops.zeros_shift(crc_ops.CRC_SEED, params.chunk_bytes)
     cells = torch.cat([data, parity], dim=1)
@@ -667,10 +1050,13 @@ def main() -> int:
         check(err == 0, f"{key}: kernel and plain differ by {err}")
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         b_ms, b_by = bound(nbytes, ops)
+        prof = profile_steps(kernel)
         timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "max_abs_err": err}
+                      "bound_by": b_by, "max_abs_err": err,
+                      "device_ms": device_ms(prof)}
         emit({"phase": "time", "what": key, **timed[key],
-              "GB_per_s": nbytes / ms / 1e6, "share_of_bound": b_ms / ms})
+              "GB_per_s": nbytes / ms / 1e6, "share_of_bound": b_ms / ms,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}})
     steps = {
         "write_step": (lambda: datapath.write_step(params, data),
                        timed["gf_write"]["ms"] + timed["crc_write"]["ms"],
@@ -699,14 +1085,22 @@ def main() -> int:
     rates = copy_rates()
     emit({"phase": "copy_rates", **rates})
     ecb = ecbatch_phase(dev, rng, rates)
-    for key, n in ecb["launches"].items():
+    for key in ("gf_matmul", "crc32c"):
+        n = ecb["launches"][key]
         check(n > 0, f"the ecbatch mixes launched {key} {n} times")
     timed.update(ecb["timed"])
+
+    # ---- phase 8: CRUSH placement (config 5, the rule engine, the
+    # resolver)
+    pl = placement_phase(dev)
+    timed.update(pl["timed"])
+    pl_errs = timed.pop("placement_checks")
 
     def shapes(*keys):  # every main-path shape a kernel was timed at
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
                                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "device_ms") if f in timed[k]}
+                                      "device_ms", "draws", "max_abs_err",
+                                      "head_max_abs_err") if f in timed[k]}
                 for k in keys}
 
     def by_path(name):
@@ -735,6 +1129,32 @@ def main() -> int:
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
                           "crc_batch_write")},
+        {"name": "straw2", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/straw2.cu",
+         "replaces": "ceph_tpu/ops/crush.py:255",
+         "launches": pl["launches"]["straw2"], **timed["straw2_config5"],
+         "max_abs_err": max(
+             *(pl_errs[c] for c in pl_errs if c not in PL_RULES),
+             timed["straw2_config5"]["max_abs_err"],
+             timed["straw2_65536"]["max_abs_err"]),
+         "library_ms": None,
+         "launches_by_path": {"placement": pl["launches"]["straw2"]},
+         "shapes": shapes("straw2_config5", "straw2_65536")},
+        {"name": "crush_rule", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/crush_rule.cu",
+         "replaces": "ceph_tpu/placement/bulk.py:433",
+         "launches": pl["launches"]["crush_rule"],
+         **timed["crush_rule_replicated_65536"],
+         "max_abs_err": max(
+             *(pl_errs[r] for r in PL_RULES),
+             *(timed[f"crush_rule_{r}_{s}"]["max_abs_err"] for r in PL_RULES
+               for s in ("65536", "64")),
+             *(timed[f"crush_rule_{r}_full"]["head_max_abs_err"]
+               for r in PL_RULES)),
+         "library_ms": None,
+         "launches_by_path": {"placement": pl["launches"]["crush_rule"]},
+         "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
+                            for s in ("full", "65536", "64")))},
     ]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -213,3 +213,121 @@ def test_held_result_is_not_overwritten_by_later_batches(cuda):
     first, parity, crcs, held = asyncio.run(t())
     assert np.array_equal(parity, held[0]) and np.array_equal(crcs, held[1])
     assert np.array_equal(parity, _native_parity(codec, first))
+
+
+# ------------------------------------------------- CRUSH placement
+
+
+def _u0xffff_xs(ids, r, want=64):
+    """Inputs x whose draw hash for the first id is 0xffff: crush_ln's
+    x == 0x10000 wrap."""
+    from ceph_tpu_torch.ops import crush
+
+    xs = torch.arange(0, 1 << 22, dtype=torch.int64)
+    hit = xs[(crush.hash32_3(xs, int(ids[0]), r) & 0xFFFF) == 0xFFFF]
+    assert hit.numel() > 0
+    return hit[:want].numpy().astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["n1", "ragged", "zero_equal", "ids",
+                                  "wrap", "tiles", "all_zero"])
+def test_straw2_kernel_equals_plain_and_host(cuda, case):
+    from ceph_tpu_torch.ops import crush
+
+    rng = np.random.default_rng(len(case))
+    n = {"n1": 1, "tiles": 2500, "all_zero": 5}.get(case, 1000)
+    items = np.arange(n, dtype=np.int32) + 7
+    ids = (rng.integers(-2**31, 2**31, n).astype(np.int32) if case == "ids"
+           else items)
+    weights = rng.integers(1, 4 * 0x10000, n, dtype=np.uint32)
+    if case == "zero_equal":
+        weights[::7] = 0
+        weights[1::5] = 0x10000
+    if case == "all_zero":
+        weights[:] = 0
+    nx = 4097 if case == "ragged" else 20000
+    xs = rng.integers(0, 2**32, nx, dtype=np.uint32)
+    if case == "wrap":
+        xs = np.concatenate([_u0xffff_xs(ids, 3), xs])
+    r = 3
+    t = {k: torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(cuda)
+         for k, v in (("items", items), ("ids", ids), ("w", weights),
+                      ("xs", xs))}
+    before = kernels.STRAW2.launches
+    got = crush.straw2_choose(t["items"], t["ids"], t["w"], t["xs"], r)
+    assert kernels.STRAW2.launches == before + 1
+    plain = crush.straw2_choose_plain(t["items"], t["ids"], t["w"], t["xs"], r)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.cpu().numpy(),
+                          native.straw2_bulk(items, weights, xs, r, ids=ids))
+
+
+def _placement_maps():
+    from ceph_tpu_torch.placement import crushmap as cm
+
+    flat = cm.build_flat(10, osd_weights=[1, 2, 3, 4, 0.5, 1, 1, 2, 8, 1])
+    flat.add_rule(cm.flat_firstn_rule(0))
+    flat.add_rule(cm.ec_rule(1, root=-1, failure_domain_type=0))
+    fw = np.full(10, 0x10000, np.uint32)
+    fw[[2, 6]] = 0
+    fw[5] = 0x8000
+    tree = cm.build_hierarchy(osds_per_host=20, n_hosts=50)
+    tree.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    tree.add_rule(cm.ec_rule(1, root=-1, failure_domain_type=1))
+    tw = np.full(1000, 0x10000, np.uint32)
+    outs = np.random.default_rng(9).choice(1000, 40, replace=False)
+    tw[outs[:20]] = 0
+    tw[outs[20:]] = 0x8000
+    legacy = cm.build_hierarchy(osds_per_host=4, n_hosts=5)
+    legacy.tunables = cm.Tunables(chooseleaf_stable=0, chooseleaf_vary_r=0)
+    legacy.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    return {"flat_firstn": (flat, 0, 4, fw), "flat_indep": (flat, 1, 9, fw),
+            "short_reweights": (flat, 0, 3, fw[:7]),
+            "host_firstn": (tree, 0, 3, tw), "host_indep": (tree, 1, 11, tw),
+            "legacy_tunables": (legacy, 0, 3, None)}
+
+
+@pytest.mark.parametrize("case", ["flat_firstn", "flat_indep",
+                                  "short_reweights", "host_firstn",
+                                  "host_indep", "legacy_tunables"])
+def test_crush_rule_kernel_equals_plain_and_host(cuda, case):
+    from ceph_tpu_torch.placement import bulk
+
+    m, ruleno, numrep, w = _placement_maps()[case]
+    comp = bulk.CompiledMap(m)
+    xs = np.random.default_rng(len(case)).integers(0, 2**32, 4099,
+                                                   dtype=np.uint32)
+    before = kernels.CRUSH_RULE.launches
+    got = bulk.do_rule_bulk(comp, ruleno, xs, numrep, w, device=cuda)
+    assert kernels.CRUSH_RULE.launches == before + 1
+    assert np.array_equal(got, bulk.do_rule_bulk(comp, ruleno, xs, numrep, w,
+                                                 device="cpu"))
+    for i in range(0, len(xs), 97):
+        row = m.do_rule(ruleno, int(xs[i]), numrep, w)
+        assert list(got[i]) == row + [bulk.ITEM_NONE] * (numrep - len(row))
+
+
+def test_resolver_device_batches_launch_the_rule_kernel(cuda):
+    from ceph_tpu_torch.placement import crushmap as cm
+    from ceph_tpu_torch.placement import resolver as rmod
+    from ceph_tpu_torch.placement.osdmap import Incremental, OSDMap, Pool
+
+    crush = cm.build_hierarchy(osds_per_host=4, n_hosts=6)
+    crush.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    om = OSDMap(crush, 24)
+    # one size-target batch (64 pgids) in the prewarm and one in the storm
+    om.add_pool(Pool(id=1, name="r", size=3, pg_num=64, crush_rule=0))
+    r = rmod.PlacementResolver(batch=True)
+
+    async def run():
+        before = kernels.CRUSH_RULE.launches
+        assert await r.prewarm(om, [1]) == 64
+        om.apply_incremental(Incremental(epoch=2, weights={3: 0}))
+        got = await asyncio.gather(*(r.afull(om, (1, ps))
+                                     for ps in range(64)))
+        return kernels.CRUSH_RULE.launches - before, got
+
+    launches, got = asyncio.run(run())
+    assert r.stats.placement_batch_lookups == 2 == launches
+    for ps, (up, upp, acting, ap) in enumerate(got):
+        assert (up, upp, acting, ap) == om.pg_to_up_acting_full((1, ps))
