@@ -252,13 +252,15 @@ def crc32c(src0: torch.Tensor, src1: torch.Tensor | None, frags: torch.Tensor,
     return out
 
 
-#: Rows a crush_rule.cu thread holds (its kMaxRep): rs codecs take
+#: Widest row crush_rule.cu takes (its kMaxRep): rs codecs take
 #: k + m <= 256.
 CRUSH_MAX_REP = 256
+#: Most lanes of crush_rule.cu that carry one input (its kMaxGroup): a warp.
+CRUSH_MAX_GROUP = 32
 #: The rule operand of crush_rule.cu (its struct Rule), in order.
 CRUSH_RULE_PARAMS = ("root_bno", "firstn", "leaf", "numrep", "choose_type",
                      "tries", "recurse_tries", "vary_r", "stable",
-                     "max_depth", "nb", "mi", "nw")
+                     "max_depth", "nb", "mi", "nw", "group")
 
 
 def _check_vec(t: torch.Tensor, dtype, what: str, device=None) -> None:
@@ -305,9 +307,10 @@ def crush_rule(items: torch.Tensor, weights: torch.Tensor,
     and weights (nb, mi) int32 (weights holding uint32 16.16), sizes and
     btype (nb,) int32, the reweight vector (nw,) int32 holding uint32,
     xs (N,) int32 holding uint32, tables as ``straw2``; ``params`` gives
-    every name of CRUSH_RULE_PARAMS but nb, mi and nw -> (N, numrep)
-    int32 rows. ``draws``, a (1,) int64 tensor on the card, if given,
-    gains the number of straw2 draws the launch made."""
+    every name of CRUSH_RULE_PARAMS but nb, mi and nw (``group``: the
+    lanes that carry one input) -> (N, numrep) int32 rows. ``draws``, a
+    (1,) int64 tensor on the card, if given, gains the number of straw2
+    draws the launch made."""
     dev = xs.device
     for t, what in ((items, "items"), (weights, "weights"), (sizes, "sizes"),
                     (btype, "btype"), (dev_weights, "dev_weights"),
@@ -321,9 +324,12 @@ def crush_rule(items: torch.Tensor, weights: torch.Tensor,
     if (sizes.shape != (nb,) or btype.shape != (nb,) or dev_weights.dim() != 1
             or xs.dim() != 1 or tables.shape != (514,)):
         raise ValueError("CRUSH operands do not fit the kernel")
-    numrep = params["numrep"]
+    numrep, group = params["numrep"], params["group"]
     if not 1 <= numrep <= CRUSH_MAX_REP:
         raise ValueError(f"numrep {numrep} outside 1..{CRUSH_MAX_REP}")
+    if not 1 <= group <= CRUSH_MAX_GROUP or group & (group - 1):
+        raise ValueError(f"group {group} is not a power of two in "
+                         f"1..{CRUSH_MAX_GROUP}")
     vals = dict(params, nb=nb, mi=mi, nw=dev_weights.shape[0])
     packed = (ctypes.c_int * len(CRUSH_RULE_PARAMS))(
         *[int(vals[k]) for k in CRUSH_RULE_PARAMS])

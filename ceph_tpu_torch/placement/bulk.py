@@ -5,9 +5,11 @@ data-dependent retries (mapper.c:438,633). Here the map compiles to dense
 arrays (bucket items/weights/sizes/types, ``CompiledMap``) and a batch of
 inputs runs through them in one call:
 
-- on a CUDA device, ``csrc/crush_rule.cu``: one thread per input running
-  the C's own loop order (firstn retries, indep rounds, the chooseleaf
-  recursion), launched once per call;
+- on a CUDA device, ``csrc/crush_rule.cu``: a group of lanes per input
+  (``group_width``: up to a warp, by the widest bucket and the batch)
+  running the C's own loop order (firstn retries, indep rounds, the
+  chooseleaf recursion) with each bucket's draws spread over the group,
+  launched once per call;
 - on the CPU, the plain version: the same semantics vectorised in torch
   over the batch, every lane walking in lockstep with per-lane masks (the
   descent unrolled over the map's depth, the retry loops as Python loops
@@ -35,6 +37,7 @@ package's engine.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
 
@@ -48,8 +51,45 @@ from . import crushmap as cm
 
 ITEM_NONE = cm.ITEM_NONE
 ITEM_UNDEF = cm.ITEM_UNDEF
-#: Most results a row may hold (the kernel's per-thread arrays).
+#: Most results a row may hold (the kernel's rows in shared memory).
 MAX_REP = kernels.CRUSH_MAX_REP
+#: Most lanes of the kernel that carry one input: a warp.
+GROUP_MAX = kernels.CRUSH_MAX_GROUP
+#: Slots of the widest bucket a lane draws in one choose when the batch
+#: fills the card. On the 50-host x 20-OSD tree at 10 M inputs (G = 8) it
+#: was the fastest width for the EC rule and within 1.3% of the fastest
+#: for the replicated one (PERF.md, "K4 redesigned").
+LANE_SLOTS = 8
+
+
+def _pow2_lanes(n: int) -> int:
+    return min(GROUP_MAX, 1 << max(n - 1, 0).bit_length())
+
+
+def group_width(widest: int, n_inputs: int, card_lanes: int) -> int:
+    """Lanes of ``csrc/crush_rule.cu`` that carry one input, for a rule
+    whose widest bucket holds ``widest`` items, over ``n_inputs`` inputs
+    on a card that holds ``card_lanes`` threads at once. Lane j draws
+    slots j, j + G, ... of a bucket, so a choose takes ceil(size / G)
+    rounds of draws and a log2(G)-step reduction.
+
+    A batch the card holds whole at one lane per slot (n_inputs x G <=
+    card_lanes) takes that G, the smallest power of two >= widest, at
+    most GROUP_MAX: the shortest serial chain an input can have. A larger
+    batch takes G >= widest / LANE_SLOTS: fewer idle lanes in a round and
+    each choose's reduction and control shared by more inputs a warp,
+    which outweighs their divergence once the card is full."""
+    whole = _pow2_lanes(widest)
+    if n_inputs * whole <= card_lanes:
+        return whole
+    return _pow2_lanes(-(-widest // LANE_SLOTS))
+
+
+@functools.lru_cache(maxsize=None)
+def card_lanes(device: torch.device) -> int:
+    """Threads ``device``'s SMs hold at once."""
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
 
 
 @dataclass(frozen=True)
@@ -90,6 +130,7 @@ class CompiledMap:
         self.max_depth = self._depth()
         self.tunables = t
         self._on: dict[str, tuple[torch.Tensor, ...]] = {}
+        self._widest: dict[int, int] = {}
         self._lock = threading.Lock()
 
     def _depth(self) -> int:
@@ -118,6 +159,23 @@ class CompiledMap:
                     for a in (self.items, self.weights, self.sizes,
                               self.btype))
             return self._on[key]
+
+    def widest(self, take: int) -> int:
+        """Items of the widest bucket reachable from bucket ``take``: the
+        most draws one choose of a rule that takes it can make."""
+        with self._lock:
+            if take not in self._widest:
+                most, seen, stack = 0, set(), [take]
+                while stack:
+                    bid = stack.pop()
+                    if bid >= 0 or bid in seen:
+                        continue
+                    seen.add(bid)
+                    b = self.crushmap.buckets[bid]
+                    most = max(most, b.size)
+                    stack.extend(b.items)
+                self._widest[take] = most
+            return self._widest[take]
 
     def _validate_descent(self, take: int, choose_type: int) -> None:
         """Reject maps where a device item is chooseable above the
@@ -252,15 +310,20 @@ def _item_type(btype, item):
     return torch.where(item >= 0, torch.zeros_like(bt), bt)
 
 
-def _descend(arrays, btype, max_depth, start_bno, x, r, target_type, active):
+def _descend(arrays, btype, max_depth, start_bno, x, r, target_type, active,
+             draws=None):
     """Walk from bucket rows start_bno down to items of target_type.
-    Returns (item, ok): ok lanes found a target-typed item."""
+    Returns (item, ok): ok lanes found a target-typed item. ``draws``, a
+    (1,) int64 tensor or None, gains the bucket's size for each choose of
+    a lane still walking (the kernel's count)."""
     sizes = arrays[2]
     cur = start_bno
     found = torch.full_like(start_bno, ITEM_NONE, dtype=torch.int32)
     walking = active
     for _ in range(max_depth):
         empty = sizes[cur] == 0  # C rejects empty buckets (mapper.c:494)
+        if draws is not None:
+            draws += torch.where(walking & ~empty, sizes[cur], 0).sum()
         item = _straw2_choose_rows(arrays, cur, x, r)
         hit = walking & ~empty & (_item_type(btype, item) == target_type)
         found = torch.where(hit, item, found)
@@ -279,7 +342,7 @@ def _sub_r(rule, r):
 
 
 def _leaf_attempts(arrays, btype, max_depth, dev_weights, rule, R,
-                   host_item, r, pos, x, active, out2):
+                   host_item, r, pos, x, active, out2, draws):
     """Recursive chooseleaf: descend to a device, recurse_tries attempts,
     r2 = (stable ? 0 : pos) + sub_r + ftotal2. The C recursion
     collision-checks the leaf against out2[0..outpos-1] (it passes out2
@@ -292,7 +355,7 @@ def _leaf_attempts(arrays, btype, max_depth, dev_weights, rule, R,
     ft2 = 0
     while bool(pending.any()) and ft2 < rule.recurse_tries:
         cand, ok = _descend(arrays, btype, max_depth, host_bno, x, base + ft2,
-                            0, pending)
+                            0, pending, draws)
         collide2 = (slot_valid & (out2 == cand[:, None])).any(dim=1)
         ok = ok & ~collide2 & ~_is_out(dev_weights, cand, x)
         leaf = torch.where(pending & ok, cand, leaf)
@@ -304,7 +367,7 @@ def _leaf_attempts(arrays, btype, max_depth, dev_weights, rule, R,
 
 
 def _choose_firstn_vec(arrays, btype, max_depth, dev_weights, rule, R,
-                       root_bno, xs):
+                       root_bno, xs, draws):
     """Vectorised crush_choose_firstn + chooseleaf recursion. Each lane
     carries (rep, ftotal, pos): success advances rep and resets ftotal,
     exhaustion (ftotal == tries) skips the rep."""
@@ -323,13 +386,13 @@ def _choose_firstn_vec(arrays, btype, max_depth, dev_weights, rule, R,
             break
         r = rep + ftotal
         cand, ok = _descend(arrays, btype, max_depth, root_bno, xs, r,
-                            rule.choose_type, active)
+                            rule.choose_type, active, draws)
         collide = ((cols < pos[:, None]) & (out == cand[:, None])).any(dim=1)
         ok = ok & ~collide
         if recurse_to_leaf:
             leaf, leaf_ok = _leaf_attempts(arrays, btype, max_depth,
                                            dev_weights, rule, R, cand, r,
-                                           pos, xs, ok, out2)
+                                           pos, xs, ok, out2, draws)
             ok = ok & leaf_ok
         else:
             leaf = cand
@@ -348,7 +411,7 @@ def _choose_firstn_vec(arrays, btype, max_depth, dev_weights, rule, R,
 
 
 def _choose_indep_vec(arrays, btype, max_depth, dev_weights, rule, R,
-                      root_bno, xs):
+                      root_bno, xs, draws):
     """Vectorised crush_choose_indep + chooseleaf recursion (positional).
     The C's round structure (for ftotal: for rep: retry UNDEF slots) is
     scanned one (ftotal, rep) pair at a time for every lane; lanes whose
@@ -372,22 +435,24 @@ def _choose_indep_vec(arrays, btype, max_depth, dev_weights, rule, R,
                 break
             r2 = rep + parent_r + numrep * ft2
             cand, ok = _descend(arrays, btype, max_depth, host_bno, xs, r2,
-                                0, pending & (host_item < 0))
+                                0, pending & (host_item < 0), draws)
             ok = ok & ~_is_out(dev_weights, cand, xs)
             leaf = torch.where(pending & ok, cand, leaf)
             ft2 += 1
         return torch.where(active & (host_item >= 0), host_item, leaf)
 
-    ftotal = 0
-    while ftotal < rule.choose_tries:
-        for rep in range(R):
-            if not bool((out == ITEM_UNDEF).any()):
-                break
+    for ftotal in range(rule.choose_tries):
+        # a round visits only the ranks some lane still lacks: a rank's
+        # column changes only at its own turn in the round
+        todo = (out == ITEM_UNDEF).any(dim=0).nonzero().flatten().tolist()
+        if not todo:
+            break
+        for rep in todo:
             pending = out[:, rep] == ITEM_UNDEF
             r = torch.full((n,), rep + numrep * ftotal, dtype=torch.int64,
                            device=dev)
             cand, ok = _descend(arrays, btype, max_depth, root_bno, xs, r,
-                                rule.choose_type, pending)
+                                rule.choose_type, pending, draws)
             ok = ok & (out == cand[:, None]).any(dim=1).logical_not()
             if recurse_to_leaf:
                 leaf = leaf_indep(cand, r, rep, ok)
@@ -399,41 +464,39 @@ def _choose_indep_vec(arrays, btype, max_depth, dev_weights, rule, R,
             success = pending & ok
             out[:, rep] = torch.where(success, cand, out[:, rep])
             out2[:, rep] = torch.where(success, leaf, out2[:, rep])
-        else:
-            ftotal += 1
-            continue
-        break
     res = out2 if recurse_to_leaf else out
     return torch.where(res == ITEM_UNDEF, ITEM_NONE, res)
 
 
-def rule_rows_plain(arrays, dev_weights, xs, rule: CompiledRule, R: int,
-                    max_depth: int) -> torch.Tensor:
-    """The plain version of the engine on ``xs``' device: arrays as
-    ``CompiledMap.arrays_on``, dev_weights (nw,) and xs (N,) int32
-    holding uint32 -> (N, R) int32 rows."""
-    items, weights, sizes, btype = arrays
-    args = ((items, weights, sizes), btype, max_depth,
+def rule_rows_plain(compiled: CompiledMap, dev_weights, xs,
+                    rule: CompiledRule, R: int,
+                    draws: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the engine on ``xs``' device: the compiled
+    map's arrays there, dev_weights (nw,) and xs (N,) int32 holding
+    uint32 -> (N, R) int32 rows. ``draws``, a (1,) int64 tensor on that
+    device, gains the straw2 draws these inputs need, counted as the
+    kernel counts them."""
+    items, weights, sizes, btype = compiled.arrays_on(xs.device)
+    args = ((items, weights, sizes), btype, compiled.max_depth,
             dev_weights.to(torch.int64) & 0xFFFFFFFF)
     x64 = xs.to(torch.int64) & 0xFFFFFFFF
     root = torch.full((xs.shape[0],), -1 - rule.take, dtype=torch.int64,
                       device=xs.device)
     if rule.op in (cm.OP_CHOOSE_FIRSTN, cm.OP_CHOOSELEAF_FIRSTN):
-        return _choose_firstn_vec(*args, rule, R, root, x64)
-    return _choose_indep_vec(*args, rule, R, root, x64)
+        return _choose_firstn_vec(*args, rule, R, root, x64, draws)
+    return _choose_indep_vec(*args, rule, R, root, x64, draws)
 
 
-def rule_rows(arrays, dev_weights, xs, rule: CompiledRule, R: int,
-              max_depth: int, draws: torch.Tensor | None = None
-              ) -> torch.Tensor:
-    """(N, R) int32 rows: the CUDA kernel for CUDA tensors (one launch),
-    the plain version for CPU ones. ``draws``, a (1,) int64 tensor on
-    the card, gains the number of straw2 draws the kernel made (the
-    work these inputs need)."""
+def rule_rows(compiled: CompiledMap, dev_weights, xs, rule: CompiledRule,
+              R: int, draws: torch.Tensor | None = None,
+              group: int | None = None) -> torch.Tensor:
+    """(N, R) int32 rows: the CUDA kernel for CUDA tensors (one launch,
+    ``group`` lanes an input, by default ``group_width``'s choice for
+    this batch; every width gives the same rows), the plain version for
+    CPU ones. ``draws``, a (1,) int64 tensor on ``xs``' device, gains the
+    number of straw2 draws made (the work these inputs need)."""
     if xs.device.type == "cpu":
-        if draws is not None:
-            raise ValueError("the plain version counts no draws")
-        return rule_rows_plain(arrays, dev_weights, xs, rule, R, max_depth)
+        return rule_rows_plain(compiled, dev_weights, xs, rule, R, draws)
     if xs.device.type != "cuda":
         raise ValueError(f"no CRUSH rule kernel for device {xs.device}")
     firstn = rule.op in (cm.OP_CHOOSE_FIRSTN, cm.OP_CHOOSELEAF_FIRSTN)
@@ -442,9 +505,12 @@ def rule_rows(arrays, dev_weights, xs, rule: CompiledRule, R: int,
               "leaf": int(leaf), "numrep": R,
               "choose_type": rule.choose_type, "tries": rule.choose_tries,
               "recurse_tries": rule.recurse_tries, "vary_r": rule.vary_r,
-              "stable": rule.stable, "max_depth": max_depth}
-    return kernels.crush_rule(*arrays, dev_weights.contiguous(),
-                              xs.contiguous(),
+              "stable": rule.stable, "max_depth": compiled.max_depth,
+              "group": group or group_width(compiled.widest(rule.take),
+                                            xs.shape[0],
+                                            card_lanes(xs.device))}
+    return kernels.crush_rule(*compiled.arrays_on(xs.device),
+                              dev_weights.contiguous(), xs.contiguous(),
                               crush_ops.kernel_tables(str(xs.device)), params,
                               draws)
 
@@ -485,11 +551,9 @@ def do_rule_bulk(
     xs = np.ascontiguousarray(xs, dtype=np.uint32)
     if r_eff <= 0 or len(xs) == 0:
         return np.full((len(xs), max(r_eff, 0)), ITEM_NONE, dtype=np.int32)
-    arrays = compiled.arrays_on(dev)
     dev_weights = _u32_tensor(weights, dev)
     xs_t = _u32_tensor(xs, dev)
     step = len(xs) if dev.type == "cuda" else max(1, chunk)
-    outs = [rule_rows(arrays, dev_weights, xs_t[lo:lo + step], rule, r_eff,
-                      compiled.max_depth)
+    outs = [rule_rows(compiled, dev_weights, xs_t[lo:lo + step], rule, r_eff)
             for lo in range(0, len(xs), step)]
     return torch.cat(outs).cpu().numpy()

@@ -77,13 +77,11 @@ def main() -> None:
     tree = cm.build_hierarchy(osds_per_host=20, n_hosts=50)
     tree.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
     comp = bulk.CompiledMap(tree)
-    arrays = comp.arrays_on(dev)
     rule = comp.compile_rule(0, 3)
     reweights = t32(np.full(1000, 0x10000, np.uint32))
     steps = {
         "straw2": lambda: crush.straw2_choose(items, items, weights, xs, 0),
-        "crush_rule": lambda: bulk.rule_rows(arrays, reweights, xs, rule, 3,
-                                             comp.max_depth),
+        "crush_rule": lambda: bulk.rule_rows(comp, reweights, xs, rule, 3),
     }
     for name, step in steps.items():
         for reps in (3, 10):

@@ -36,10 +36,12 @@ wrap at u = 0xffff, a bucket larger than one shared-memory tile) and at
 65,536 inputs over 1,000 items; BASELINE.json config 5 (10 M inputs over
 a flat 1,000-OSD straw2 bucket, weights from seed 11 as bench.py draws
 them), exact against the C++ host core on 100,000 of them; the rule
-kernel against its plain version, then 10 M inputs through each of a
-replicated (chooseleaf firstn host, 3) and an EC k=8, m=3 rule (chooseleaf
-indep host, 11) on a 50 x 20-OSD tree with 20 OSDs out and 20 at half
-weight, exact against ``CrushMap.do_rule`` on 10,000 inputs, and the
+kernel against its plain version, rows and draw counts, on 65,536 inputs
+and on maps at the edges of its lane groups (``rule_edge_maps``), then
+10 M inputs through each of a replicated (chooseleaf firstn host, 3) and
+an EC k=8, m=3 rule (chooseleaf indep host, 11) on a 50 x 20-OSD tree
+with 20 OSDs out and 20 at half weight, exact against
+``CrushMap.do_rule`` on 10,000 inputs, and the
 tester's utilization; and a ``PlacementResolver`` on the card over an
 OSDMap of that cluster (a replicated pool of 32,768 PGs and an EC pool of
 8,192: ~100 PG shards per OSD, Ceph's mon_target_pg_per_osd), prewarmed,
@@ -115,6 +117,11 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 PL_OSDS, PL_SEED, PL_X, PL_SUBSET = 1000, 11, 10_000_000, 100_000
 PL_HOSTS, PL_PER_HOST, PL_OUT, PL_HALF, PL_INC_OUT = 50, 20, 20, 20, 10
 PL_CHECK_X, PL_ORACLE_X = 65_536, 10_000
+#: Bucket sizes of the rule kernel's edge maps: 1 and 2 lanes, either side
+#: of one and of two full groups of 32 lanes.
+PL_EDGE_SIZES = (1, 2, 31, 32, 33, 64, 65)
+#: Inputs a rule edge map takes: a ragged count of groups and of blocks.
+PL_EDGE_X = 4099
 PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
 PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 
@@ -595,6 +602,103 @@ def rule_bound(draws: int, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def rule_edge_maps() -> dict:
+    """Maps at the edges of crush_rule.cu's lane groups, as name: (CrushMap,
+    rule, numrep, reweights or None): flat and two-level (n hosts of n
+    OSDs) maps with buckets of each of PL_EDGE_SIZES items under a firstn
+    and an indep rule, some OSDs out or at half weight; an all-zero-weight
+    bucket, flat and as a host; an empty host bucket; a tree of uneven
+    depth (a root over a rack of hosts and a bare host); indep at numrep
+    256 over 300 OSDs; the legacy and vary_r tunables. Weights and
+    reweights from a fixed seed."""
+    from ceph_tpu_torch.placement import crushmap as cm
+
+    rng = np.random.default_rng(20261018)
+
+    def reweights(n, k=1):
+        w = np.full(n, 0x10000, dtype=np.uint32)
+        if n > 2:
+            picked = rng.choice(n, 2 * k, replace=False)
+            w[picked[:k]] = 0
+            w[picked[k:]] = 0x8000
+        return w
+
+    def with_rules(m, *rules):
+        for rule in rules:
+            m.add_rule(rule)
+        return m
+
+    cases = {}
+    for n in PL_EDGE_SIZES:
+        flat = with_rules(cm.build_flat(n, rng.uniform(0.25, 4, n)),
+                          cm.flat_firstn_rule(0),
+                          cm.ec_rule(1, root=-1, failure_domain_type=0))
+        w = reweights(n)
+        cases[f"flat{n}_firstn"] = (flat, 0, 3, w)
+        cases[f"flat{n}_indep"] = (flat, 1, 5, w)
+        tree = with_rules(cm.build_hierarchy(osds_per_host=n, n_hosts=n),
+                          cm.replicated_rule(0, root=-1,
+                                             failure_domain_type=1),
+                          cm.ec_rule(1, root=-1, failure_domain_type=1))
+        w = reweights(n * n, k=max(1, n // 4))
+        cases[f"tree{n}_firstn"] = (tree, 0, 3, w)
+        cases[f"tree{n}_indep"] = (tree, 1, 6, w)
+    zero = with_rules(cm.build_flat(5, osd_weights=[0] * 5),
+                      cm.flat_firstn_rule(0),
+                      cm.ec_rule(1, root=-1, failure_domain_type=0))
+    cases["zero_flat_firstn"] = (zero, 0, 3, None)
+    cases["zero_flat_indep"] = (zero, 1, 4, None)
+    zhost = with_rules(cm.build_hierarchy(osds_per_host=4, n_hosts=5),
+                       cm.replicated_rule(0, root=-1, failure_domain_type=1),
+                       cm.ec_rule(1, root=-1, failure_domain_type=1))
+    zhost.buckets[-3].weights = [0] * 4  # still weighted in the root
+    cases["zero_host_firstn"] = (zhost, 0, 3, None)
+    cases["zero_host_indep"] = (zhost, 1, 5, None)
+    empty = cm.build_hierarchy(osds_per_host=3, n_hosts=4)
+    empty.add_bucket(cm.Bucket(id=-6, type_id=1, items=[], weights=[],
+                               name="host4"))
+    empty.buckets[-1].items.append(-6)
+    empty.buckets[-1].weights.append(0x30000)  # weighted, but empty
+    with_rules(empty, cm.replicated_rule(0, root=-1, failure_domain_type=1),
+               cm.ec_rule(1, root=-1, failure_domain_type=1))
+    cases["empty_host_firstn"] = (empty, 0, 3, None)
+    cases["empty_host_indep"] = (empty, 1, 4, None)
+    uneven = cm.CrushMap()
+    for t, name in ((1, "host"), (2, "rack"), (3, "root")):
+        uneven.add_type(t, name)
+    osd = 0
+    for h, n in enumerate((3, 40, 7, 2)):
+        uneven.add_bucket(cm.Bucket(
+            id=-2 - h, type_id=1, items=list(range(osd, osd + n)),
+            weights=[int(v) for v in rng.integers(0x4000, 0x30000, n)],
+            name=f"host{h}"))
+        osd += n
+    uneven.add_bucket(cm.Bucket(
+        id=-6, type_id=2, items=[-2, -3, -4],
+        weights=[uneven.buckets[b].weight() for b in (-2, -3, -4)],
+        name="rack0"))
+    uneven.add_bucket(cm.Bucket(
+        id=-1, type_id=3, items=[-6, -5],
+        weights=[uneven.buckets[-6].weight(), 0x40000], name="root"))
+    with_rules(uneven, cm.replicated_rule(0, root=-1, failure_domain_type=1),
+               cm.ec_rule(1, root=-1, failure_domain_type=1))
+    cases["uneven_depth_firstn"] = (uneven, 0, 3, reweights(osd, 3))
+    cases["uneven_depth_indep"] = (uneven, 1, 4, reweights(osd, 3))
+    wide = with_rules(cm.build_flat(300),
+                      cm.ec_rule(0, root=-1, failure_domain_type=0))
+    cases["indep256_flat300"] = (wide, 0, 256, reweights(300, 10))
+    for name, tunables in (
+            ("legacy_tunables", cm.Tunables(chooseleaf_stable=0,
+                                            chooseleaf_vary_r=0)),
+            ("vary_r_2", cm.Tunables(chooseleaf_vary_r=2,
+                                     chooseleaf_descend_once=0))):
+        m = cm.build_hierarchy(osds_per_host=4, n_hosts=5)
+        m.tunables = tunables
+        m.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+        cases[name] = (m, 0, 3, reweights(20, 2))
+    return cases
+
+
 def placement_phase(dev) -> dict:
     """Drive the CRUSH placement slice on the card (see the module
     docstring), print one line per step and return the kernels' launch
@@ -674,23 +778,77 @@ def placement_phase(dev) -> dict:
     rules = {name: comp.compile_rule(rule, numrep)
              for name, (rule, numrep) in PL_RULES.items()}
 
-    def rows_kernel(name, x):
-        return bulk.rule_rows(arrays, rw_t, x, rules[name],
-                              PL_RULES[name][1], comp.max_depth)
+    lanes = bulk.card_lanes(dev)
 
-    def rows_plain(name, x, step=1 << 18):
+    def group(nx):  # the lanes an input takes in a batch of nx
+        return bulk.group_width(comp.widest(-1), nx, lanes)
+
+    def rows_kernel(name, x, draws=None):
+        return bulk.rule_rows(comp, rw_t, x, rules[name], PL_RULES[name][1],
+                              draws)
+
+    def rows_plain(name, x, draws=None, step=1 << 18):
         return torch.cat([bulk.rule_rows_plain(
-            arrays, rw_t, x[lo:lo + step], rules[name], PL_RULES[name][1],
-            comp.max_depth) for lo in range(0, x.shape[0], step)])
+            comp, rw_t, x[lo:lo + step], rules[name], PL_RULES[name][1],
+            draws) for lo in range(0, x.shape[0], step)])
 
-    plain_rows = {name: rows_plain(name, sub_t) for name in PL_RULES}
+    def zero_count():
+        return torch.zeros(1, dtype=torch.int64, device=dev)
+
+    # the draws of the check inputs, counted by the kernel and by the
+    # plain version (the bucket's size per choose of an input)
+    plain_rows, check_draws = {}, {}
     for name in PL_RULES:
-        errs[name] = max_abs_err(rows_kernel(name, sub_t), plain_rows[name])
+        kd, pd = zero_count(), zero_count()
+        plain_rows[name] = rows_plain(name, sub_t, pd)
+        errs[name] = max_abs_err(rows_kernel(name, sub_t, kd),
+                                 plain_rows[name])
         check(errs[name] == 0, f"crush_rule {name}: kernel and plain differ "
                                f"by {errs[name]}")
+        check(int(kd.item()) == int(pd.item()),
+              f"crush_rule {name}: the kernel counted {int(kd.item())} "
+              f"draws, the plain version {int(pd.item())}")
+        check_draws[name] = int(kd.item())
     emit({"phase": "placement_rule_vs_plain", "rules": list(PL_RULES),
           "inputs": PL_CHECK_X, "out": PL_OUT, "half_weight": PL_HALF,
+          "group": group(PL_CHECK_X), "draws": check_draws,
+          "draws_equal": True,
           "max_abs_err": max(errs[name] for name in PL_RULES)})
+
+    # ---- the rule kernel at the edges of its lane groups (bucket sizes
+    # either side of 32 and 64, zero weights, an empty bucket, uneven
+    # depth, rows of 256, the legacy tunables), rows and draws against the
+    # plain version on the same inputs, a ragged count of them, at both
+    # widths group_width can choose for a map (a batch the card holds
+    # whole, one that fills it)
+    xrng = np.random.default_rng(20261019)
+    edge_groups = {}
+    for ename, (emap, ruleno, numrep, ew) in rule_edge_maps().items():
+        ecomp = bulk.CompiledMap(emap)
+        erule = ecomp.compile_rule(ruleno, numrep)
+        ew_t = t32(np.full(ecomp.max_devices, 0x10000, dtype=np.uint32)
+                   if ew is None else ew)
+        ex_t = t32(xrng.integers(0, 2**32, PL_EDGE_X, dtype=np.uint32))
+        pd = zero_count()
+        want = bulk.rule_rows_plain(ecomp, ew_t, ex_t, erule, numrep, pd)
+        widths = sorted({bulk.group_width(ecomp.widest(erule.take), n, lanes)
+                         for n in (1, PL_X)})
+        err = 0
+        for width in widths:
+            kd = zero_count()
+            err = max(err, max_abs_err(bulk.rule_rows(
+                ecomp, ew_t, ex_t, erule, numrep, kd, width), want))
+            check(int(kd.item()) == int(pd.item()),
+                  f"crush_rule edge {ename}, {width} lanes: the kernel "
+                  f"counted {int(kd.item())} draws, the plain version "
+                  f"{int(pd.item())}")
+        check(err == 0, f"crush_rule edge {ename}: kernel and plain differ "
+                        f"by {err}")
+        edge_groups[ename] = widths
+        errs[f"edge_{ename}"] = err
+    emit({"phase": "placement_rule_edges", "inputs": PL_EDGE_X,
+          "groups": edge_groups, "draws_equal": True,
+          "max_abs_err": max(errs[f"edge_{e}"] for e in edge_groups)})
 
     # ---- times: config 5 and each rule at full size, at the check shape
     # and at the resolver's batch (one size target of pgids); the rule
@@ -704,14 +862,14 @@ def placement_phase(dev) -> dict:
     timed = {}
 
     def time_case(key, nx, kernel, plain, draws, nbytes, reps=5,
-                  head_ref=None):
+                  head_ref=None, info=None):
         got = kernel()
         ms = time_ms(kernel, reps=reps, warmup=0)
         b_ms, b_by = rule_bound(draws, nbytes)
         prof = profile_steps(kernel, reps=3)
         timed[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                       "draws": draws,
-                      "device_ms": device_ms(prof)}
+                      "device_ms": device_ms(prof), **(info or {})}
         if plain is not None:
             timed[key]["plain_ms"], want = time_once(plain)
             timed[key]["max_abs_err"] = max_abs_err(got, want)
@@ -740,9 +898,8 @@ def placement_phase(dev) -> dict:
     for name, (rule, numrep) in PL_RULES.items():
         for size, x_t in (("full", xs_t), ("65536", sub_t), ("64", batch)):
             key = f"crush_rule_{name}_{size}"
-            count = torch.zeros(1, dtype=torch.int64, device=dev)
-            bulk.rule_rows(arrays, rw_t, x_t, rules[name], numrep,
-                           comp.max_depth, draws=count)
+            count = zero_count()
+            rows_kernel(name, x_t, count)
             check(int(count.item()) >= x_t.shape[0] * numrep,
                   f"{key}: the kernel counted {int(count.item())} draws")
             nbytes = (arrays[0].numel() * 8.0 + 8.0 * arrays[2].numel()
@@ -753,8 +910,12 @@ def placement_phase(dev) -> dict:
                       lambda n=name, x=x_t: rows_plain(n, x),
                       int(count.item()), nbytes,
                       reps=3 if size == "full" else 20,
-                      head_ref=plain_rows[name] if size == "full" else None)
-    timed["placement_checks"] = errs
+                      head_ref=plain_rows[name] if size == "full" else None,
+                      info={"group": group(x_t.shape[0])})
+    timed["placement_checks"] = {k: v for k, v in errs.items()
+                                 if not k.startswith("edge_")}
+    timed["placement_checks"]["rule_edges"] = max(
+        errs[f"edge_{e}"] for e in edge_groups)
 
     # ---- the main path: config 5, the rule engine, the tester, the
     # resolver, all through the numpy/asyncio surfaces a user calls
@@ -1099,8 +1260,9 @@ def main() -> int:
     def shapes(*keys):  # every main-path shape a kernel was timed at
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
                                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "device_ms", "draws", "max_abs_err",
-                                      "head_max_abs_err") if f in timed[k]}
+                                      "device_ms", "draws", "group",
+                                      "max_abs_err", "head_max_abs_err")
+                                     if f in timed[k]}
                 for k in keys}
 
     def by_path(name):
@@ -1134,7 +1296,8 @@ def main() -> int:
          "replaces": "ceph_tpu/ops/crush.py:255",
          "launches": pl["launches"]["straw2"], **timed["straw2_config5"],
          "max_abs_err": max(
-             *(pl_errs[c] for c in pl_errs if c not in PL_RULES),
+             *(pl_errs[c] for c in pl_errs
+               if c not in (*PL_RULES, "rule_edges")),
              timed["straw2_config5"]["max_abs_err"],
              timed["straw2_65536"]["max_abs_err"]),
          "library_ms": None,
@@ -1146,7 +1309,7 @@ def main() -> int:
          "launches": pl["launches"]["crush_rule"],
          **timed["crush_rule_replicated_65536"],
          "max_abs_err": max(
-             *(pl_errs[r] for r in PL_RULES),
+             *(pl_errs[r] for r in (*PL_RULES, "rule_edges")),
              *(timed[f"crush_rule_{r}_{s}"]["max_abs_err"] for r in PL_RULES
                for s in ("65536", "64")),
              *(timed[f"crush_rule_{r}_full"]["head_max_abs_err"]

@@ -1,19 +1,25 @@
 """The port's bulk rule engine (``ceph_tpu_torch.placement.bulk``, its
 plain version on the CPU) against the JAX package's engine and the host
 oracle, in the cases of tests/test_bulk_placement.py, with every
-rejection. Maps are built in the JAX package and carried across as its
-wire bytes. Tolerance: exact equality (placements)."""
+rejection; on the maps at the edges of the CUDA kernel's lane groups
+(``chip_smoke.rule_edge_maps``, which the card tests and ``chip_smoke.py``
+use); the kernel's group width; and the plain version's draw count
+against counts made by hand and by the host oracle. Maps are built in
+the JAX package and carried across as its wire bytes, the edge maps the
+other way. Tolerance: exact equality (placements, draw counts)."""
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ceph_tpu.placement import bulk as jbulk
 from ceph_tpu.placement import crushmap as jcm
 from ceph_tpu.placement import encoding as jenc
-from ceph_tpu_torch import convert
+from ceph_tpu_torch import convert, native
 from ceph_tpu_torch.ops import crush
 from ceph_tpu_torch.placement import bulk
 from ceph_tpu_torch.placement import crushmap as cm
+from ceph_tpu_torch.placement import encoding as penc
 
 torch.set_num_threads(1)
 
@@ -265,3 +271,163 @@ def test_no_device_and_no_card_raises(monkeypatch):
         bulk.do_rule_bulk(bulk.CompiledMap(m), 0, np.arange(4), 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         crush.straw2_bulk(np.arange(3), np.ones(3, np.uint32), np.arange(4))
+
+
+# ------------------------------------- the kernel's edge maps and draws
+
+EDGE_NAMES = list(chip_smoke.rule_edge_maps())
+#: inputs an edge map takes here: rows of 256 cost the plain engine about
+#: a second an input on the CPU
+EDGE_X = {"indep256_flat300": 8}
+#: edge maps held against the JAX engine too (each costs it one compile)
+EDGE_AGAINST_JAX = {"flat33_firstn", "tree65_indep", "zero_host_indep"}
+
+
+@pytest.mark.parametrize("name", EDGE_NAMES)
+def test_plain_engine_on_the_kernel_edge_maps(name):
+    m, ruleno, numrep, weights = chip_smoke.rule_edge_maps()[name]
+    jmap, _ = jenc.decode_crushmap(penc.encode_crushmap(m))
+    xs = _xs(EDGE_X.get(name, N_X))
+    got = bulk.do_rule_bulk(bulk.CompiledMap(m), ruleno, xs, numrep, weights,
+                            device="cpu")
+    np.testing.assert_array_equal(
+        got, _host_rows(jmap, ruleno, xs, numrep, weights))
+    if name in EDGE_AGAINST_JAX:
+        np.testing.assert_array_equal(got, jbulk.do_rule_bulk(
+            jbulk.CompiledMap(jmap), ruleno, xs, numrep, weights))
+
+
+#: threads of an H100's SMs (132 x 2048), for the group width's bands
+LANES = 132 * 2048
+
+
+@pytest.mark.parametrize("widest,n_inputs,group", [
+    # a batch the card holds whole: one lane per slot, at most 32
+    (0, 64, 1), (1, 64, 1), (2, 64, 2), (3, 64, 4), (4, 64, 4), (5, 64, 8),
+    (8, 64, 8), (9, 64, 16), (16, 64, 16), (17, 64, 32), (31, 64, 32),
+    (32, 64, 32), (33, 64, 32), (64, 64, 32), (65, 64, 32), (1000, 64, 32),
+    (50, LANES // 32, 32),
+    # a batch that fills it: about LANE_SLOTS slots a lane
+    (50, LANES // 32 + 1, 8), (1, 10**7, 1), (8, 10**7, 1), (9, 10**7, 2),
+    (16, 10**7, 2), (17, 10**7, 4), (32, 10**7, 4), (33, 10**7, 8),
+    (50, 10**7, 8), (64, 10**7, 8), (65, 10**7, 16), (128, 10**7, 16),
+    (129, 10**7, 32), (1000, 10**7, 32), (50, 65536, 8)])
+def test_group_width_bands(widest, n_inputs, group):
+    assert bulk.group_width(widest, n_inputs, LANES) == group
+
+
+def test_widest_bucket_below_a_take():
+    edges = chip_smoke.rule_edge_maps()
+    for name, widest in (("flat1_firstn", 1), ("flat65_indep", 65),
+                         ("tree33_firstn", 33), ("zero_flat_firstn", 5),
+                         ("empty_host_firstn", 5), ("uneven_depth_indep", 40),
+                         ("indep256_flat300", 300)):
+        assert bulk.CompiledMap(edges[name][0]).widest(-1) == widest, name
+    comp = bulk.CompiledMap(edges["uneven_depth_firstn"][0])
+    assert [comp.widest(b) for b in (-6, -5, -2)] == [40, 2, 3]
+
+
+def _u32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32))
+
+
+def _plain_draws(m, ruleno, xs, numrep, weights=None) -> int:
+    comp = bulk.CompiledMap(m)
+    if weights is None:
+        weights = np.full(comp.max_devices, 0x10000, dtype=np.uint32)
+    draws = torch.zeros(1, dtype=torch.int64)
+    bulk.rule_rows(comp, _u32(weights), _u32(xs),
+                   comp.compile_rule(ruleno, numrep), numrep, draws=draws)
+    return int(draws.item())
+
+
+def _choose(bucket, x, r) -> int:
+    return int(native.straw2_choose(np.asarray(bucket.items, np.int32),
+                                    np.asarray(bucket.weights, np.uint32),
+                                    int(x), r))
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 65])
+def test_plain_draws_flat_one_rank(n):
+    m = cm.build_flat(n)
+    m.add_rule(cm.flat_firstn_rule(0))
+    xs = _xs(200)
+    assert _plain_draws(m, 0, xs, 1) == len(xs) * n
+
+
+def test_plain_draws_two_level_one_rank():
+    m = cm.build_hierarchy(osds_per_host=7, n_hosts=33)
+    m.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    xs = _xs(200)
+    assert _plain_draws(m, 0, xs, 1) == len(xs) * (33 + 7)
+
+
+def test_plain_draws_counted_by_hand_flat_firstn():
+    """Nothing out: numrep x n draws an input, and n more for each attempt
+    whose pick collides with an earlier rank's (r = rep + ftotal)."""
+    n, numrep = 33, 3
+    m = cm.build_flat(n)
+    m.add_rule(cm.flat_firstn_rule(0))
+    xs = _xs(128)
+    want = 0
+    for x in xs:
+        row = []
+        for rep in range(numrep):
+            for ftotal in range(51):
+                want += n
+                item = _choose(m.buckets[-1], x, rep + ftotal)
+                if item not in row:
+                    row.append(item)
+                    break
+    assert want > len(xs) * numrep * n  # some ranks did collide
+    assert _plain_draws(m, 0, xs, numrep) == want
+
+
+def test_plain_draws_counted_by_hand_two_level_firstn():
+    """chooseleaf firstn host, nothing out: root + host draws a rank, and
+    the root's draws again for each pick of a host already in the row
+    (leaves of distinct hosts never collide, so one leaf try suffices)."""
+    hosts, per_host, numrep = 9, 4, 3
+    m = cm.build_hierarchy(osds_per_host=per_host, n_hosts=hosts)
+    m.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    xs = _xs(128)
+    want = 0
+    for x in xs:
+        row = []
+        for rep in range(numrep):
+            for ftotal in range(51):
+                want += hosts
+                host = _choose(m.buckets[-1], x, rep + ftotal)
+                if host not in row:
+                    want += per_host
+                    row.append(host)
+                    break
+    assert want > len(xs) * numrep * (hosts + per_host)
+    assert _plain_draws(m, 0, xs, numrep) == want
+
+
+@pytest.mark.parametrize("name", [
+    "tree2_firstn", "tree33_indep", "flat65_indep", "zero_flat_firstn",
+    "zero_host_indep", "empty_host_firstn", "empty_host_indep",
+    "uneven_depth_firstn", "uneven_depth_indep", "legacy_tunables",
+    "vary_r_2"])
+def test_plain_draws_equal_the_host_oracles(name):
+    """Every bucket choose the host oracle's loops make (CrushMap.do_rule,
+    the C's order) adds the bucket's size: the same count as the plain
+    version's, with retries, rejections and empty buckets."""
+    m, ruleno, numrep, weights = chip_smoke.rule_edge_maps()[name]
+    xs = _xs(96)
+    count = 0
+    choose = m.bucket_choose
+
+    def counting(b, x, r):
+        nonlocal count
+        count += b.size
+        return choose(b, x, r)
+
+    m.bucket_choose = counting
+    for x in xs:
+        m.do_rule(ruleno, int(x), numrep, weights)
+    assert count > 0
+    assert _plain_draws(m, ruleno, xs, numrep, weights) == count

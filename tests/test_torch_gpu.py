@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ceph_tpu_torch import kernels, native
 from ceph_tpu_torch.cluster import ECBatcher
 from ceph_tpu_torch.device import words_to_tensor
@@ -305,6 +306,76 @@ def test_crush_rule_kernel_equals_plain_and_host(cuda, case):
     for i in range(0, len(xs), 97):
         row = m.do_rule(ruleno, int(xs[i]), numrep, w)
         assert list(got[i]) == row + [bulk.ITEM_NONE] * (numrep - len(row))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.rule_edge_maps()))
+def test_crush_rule_kernel_at_the_group_edges(cuda, case):
+    """Buckets either side of one and two groups of 32 lanes, zero weights,
+    an empty bucket, uneven depth, rows of 256 and the legacy tunables,
+    over a ragged count of inputs, at both widths group_width can choose
+    for the map (a batch the card holds whole, one that fills it): rows
+    and draw counts equal the plain version's (on the CPU; on the card
+    for rows of 256, which take the CPU minutes), rows equal
+    CrushMap.do_rule's, one launch per call."""
+    from ceph_tpu_torch.placement import bulk
+
+    m, ruleno, numrep, w = chip_smoke.rule_edge_maps()[case]
+    comp = bulk.CompiledMap(m)
+    if w is None:
+        w = np.full(comp.max_devices, 0x10000, np.uint32)
+    rule = comp.compile_rule(ruleno, numrep)
+    xs = np.random.default_rng(len(case)).integers(
+        0, 2**32, chip_smoke.PL_EDGE_X, dtype=np.uint32)
+    before = kernels.CRUSH_RULE.launches
+    got = bulk.do_rule_bulk(comp, ruleno, xs, numrep, w, device=cuda)
+    assert kernels.CRUSH_RULE.launches == before + 1
+
+    def on(dev):
+        return [torch.from_numpy(a.view(np.int32)).to(dev) for a in (w, xs)]
+
+    plain_dev = cuda if numrep > 64 else torch.device("cpu")
+    plain_draws = torch.zeros(1, dtype=torch.int64, device=plain_dev)
+    plain = bulk.rule_rows_plain(comp, *on(plain_dev), rule, numrep,
+                                 plain_draws)
+    assert np.array_equal(got, plain.cpu().numpy())
+    widest, lanes = comp.widest(rule.take), bulk.card_lanes(cuda)
+    for n in (1, 10**7):
+        group = bulk.group_width(widest, n, lanes)
+        before = kernels.CRUSH_RULE.launches
+        draws = torch.zeros(1, dtype=torch.int64, device=cuda)
+        again = bulk.rule_rows(comp, *on(cuda), rule, numrep, draws, group)
+        assert kernels.CRUSH_RULE.launches == before + 1
+        assert np.array_equal(again.cpu().numpy(), got), group
+        assert int(draws.item()) == int(plain_draws.item()) > 0, group
+    for i in range(0, len(xs), 97):
+        row = m.do_rule(ruleno, int(xs[i]), numrep, w)
+        assert list(got[i]) == row + [bulk.ITEM_NONE] * (numrep - len(row))
+
+
+def test_crush_rule_wrapper_refuses_a_bad_group(cuda):
+    from ceph_tpu_torch.ops import crush
+    from ceph_tpu_torch.placement import bulk
+    from ceph_tpu_torch.placement import crushmap as cm
+
+    m = cm.build_flat(4)
+    m.add_rule(cm.flat_firstn_rule(0))
+    comp = bulk.CompiledMap(m)
+    arrays = comp.arrays_on(cuda)
+    w = torch.full((4,), 0x10000, dtype=torch.int32, device=cuda)
+    xs = torch.arange(8, dtype=torch.int32, device=cuda)
+    params = {"root_bno": 0, "firstn": 1, "leaf": 0, "numrep": 2,
+              "choose_type": 0, "tries": 51, "recurse_tries": 1,
+              "vary_r": 1, "stable": 1, "max_depth": comp.max_depth}
+    tables = crush.kernel_tables(str(cuda))
+    for group in (0, 3, 64):
+        with pytest.raises(ValueError, match="power of two"):
+            kernels.crush_rule(*arrays, w, xs, tables,
+                               dict(params, group=group))
+    for group in (1, 4, 32):  # any width gives the same rows
+        assert torch.equal(
+            kernels.crush_rule(*arrays, w, xs, tables,
+                               dict(params, group=group)),
+            bulk.rule_rows_plain(comp, w, xs, comp.compile_rule(0, 2), 2))
 
 
 def test_resolver_device_batches_launch_the_rule_kernel(cuda):
