@@ -12,13 +12,19 @@ reference so each module's counterpart is easy to find:
                 crush (Jenkins hash, crush_ln, straw2)
   models/       datapath: the batched EC write / repair step
   ec/           codec seam: ErasureCode base, registry, rs_tpu, isa
-  checksum/     the BlueStore Checksummer (crc32c family, xxhash)
+  checksum/     the BlueStore Checksummer (crc32c family, xxhash): the
+                C++ core by default, the crc32c kernel with device=True
   cluster/      the OSD's ECBatcher and stripe layout
   placement/    CRUSH maps and host rule engine, the bulk rule engine,
                 OSDMap, map encoding, crushtool compiler, tester, and the
                 batched placement resolver
-  utils/        config schema, perf counters, fault injection, denc
-  native/       the C++ host core (g++ at first use, ctypes)
+  store/        the object store: transactions, MemStore, WalStore (WAL +
+                checkpoint snapshots) and BlueStoreLite (block device +
+                KV metadata), both checksumming through the Checksummer
+  utils/        config schema, perf counters, fault injection, denc,
+                BufferList, compressors, SloppyCRCMap
+  native/       the C++ host core and ``rt`` (KV store, block device,
+                bitmap allocator): g++ at first use, ctypes
   convert.py    hands the reference's state (matrix, stripe data, CRUSH
                 and OSD maps) over
 """

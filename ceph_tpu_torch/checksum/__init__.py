@@ -6,11 +6,18 @@ csum_block over a buffer with init value -1 (Checksummer.h:203 default),
 verify returning the byte offset of the first bad block and its actual
 checksum (Checksummer.h:236-271 contract: -1 == clean).
 
-The crc32c family runs on the port's batched CRC path (``ops/crc32c.py``)
-on the checksummer's device: the CUDA kernel on the card, thousands of
-blocks per launch, or the plain version on the CPU. xxhash32/xxhash64 run
-on the port's C++ host core (``native``), one call per block, as in the
-JAX package.
+Two engines for the crc32c family, picked per call as in the JAX
+package (``calculate(data, device=False)``):
+- host (the default): the port's C++ core (``native.crc32c_batch``,
+  SSE4.2 where the host has it);
+- device (``device=True``): the batched CRC path (``ops/crc32c.py``) on
+  the Checksummer's ``device``, the CUDA kernel on the card (thousands of
+  blocks per launch) or the plain version on the CPU. That device is
+  resolved at the first ``device=True`` call, so a host-only Checksummer
+  needs no card; with no device named and no card, that call raises.
+
+xxhash32/xxhash64 run on the C++ core, one call per block, on either
+engine, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -55,9 +62,9 @@ def _check_alg(alg: str) -> None:
 
 @dataclass
 class Checksummer:
-    """Per-block checksum engine for one (algorithm, block size) config,
-    computing on ``device`` (the CUDA card unless the caller names
-    another)."""
+    """Per-block checksum engine for one (algorithm, block size) config.
+    ``device`` is where ``device=True`` calls compute (the CUDA card
+    unless the caller names another), resolved at the first such call."""
 
     alg: str = CSUM_CRC32C
     csum_block_size: int = 4096
@@ -75,7 +82,13 @@ class Checksummer:
         bs = self.csum_block_size
         if bs <= 0 or bs & (bs - 1):
             raise ValueError(f"csum_block_size must be a power of two, got {bs}")
-        self.device = resolve(self.device)
+
+    def torch_device(self) -> torch.device:
+        """The device of ``device=True`` calls, resolved once (raises with
+        no device named and no card)."""
+        if not isinstance(self.device, torch.device):
+            self.device = resolve(self.device)
+        return self.device
 
     def _blocks(self, data: np.ndarray, length: int) -> np.ndarray:
         if length % self.csum_block_size:
@@ -84,33 +97,39 @@ class Checksummer:
             )
         return data[:length].reshape(-1, self.csum_block_size)
 
-    def calculate(self, data) -> np.ndarray:
+    def calculate(self, data, device: bool = False) -> np.ndarray:
         """Checksum every csum_block of ``data`` (length must be aligned).
 
-        Returns a typed array, one value per block."""
+        Returns a typed array, one value per block. device=True routes the
+        crc32c family through the batched CRC path on ``torch_device()``.
+        """
         data = _as_u8(data)
         if self.alg == CSUM_NONE:
             return np.zeros(0, dtype=np.uint8)
         blocks = self._blocks(data, data.size)
+        seed = self.init_value
+        if self.alg in (CSUM_CRC32C, CSUM_CRC32C_16, CSUM_CRC32C_8):
+            if device:
+                crcs = crc32c_ops.crc32c_batch(blocks, seed=seed,
+                                               device=self.torch_device())
+            else:
+                crcs = native.crc32c_batch(blocks, seed=seed)
+            if self.alg == CSUM_CRC32C_16:
+                return (crcs & 0xFFFF).astype(np.uint16)
+            if self.alg == CSUM_CRC32C_8:
+                return (crcs & 0xFF).astype(np.uint8)
+            return crcs.astype(np.uint32)
         if self.alg == CSUM_XXHASH32:
-            return np.array([native.xxhash32(b, seed=self.init_value)
-                             for b in blocks], dtype=np.uint32)
-        if self.alg == CSUM_XXHASH64:
-            return np.array([native.xxhash64(b, seed=self.init_value)
-                             for b in blocks], dtype=np.uint64)
-        crcs = crc32c_ops.crc32c_batch(blocks, seed=self.init_value,
-                                       device=self.device)
-        if self.alg == CSUM_CRC32C_16:
-            return (crcs & 0xFFFF).astype(np.uint16)
-        if self.alg == CSUM_CRC32C_8:
-            return (crcs & 0xFF).astype(np.uint8)
-        return crcs.astype(np.uint32)
+            return np.array([native.xxhash32(b, seed=seed) for b in blocks],
+                            dtype=np.uint32)
+        return np.array([native.xxhash64(b, seed=seed) for b in blocks],
+                        dtype=np.uint64)
 
-    def verify(self, data, csums: np.ndarray):
+    def verify(self, data, csums: np.ndarray, device: bool = False):
         """Recompute and compare. Returns (-1, None) when clean, else
         (byte_offset_of_first_bad_block, actual_csum) — the
         Checksummer::verify contract (Checksummer.h:236)."""
-        got = self.calculate(data)
+        got = self.calculate(data, device=device)
         want = np.asarray(csums)
         if got.shape != want.shape:
             raise ValueError(f"csum count mismatch: {got.shape} vs {want.shape}")

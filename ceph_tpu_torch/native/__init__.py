@@ -4,12 +4,15 @@
 the JAX package's native sources: GF(2^8) field ops and Reed-Solomon
 matrices, the multithreaded host RS engine (``rs_encode`` / ``rs_matmul``
 / ``rs_decode``), CRC32C (SSE4.2 where the host has it), CRUSH straw2 and
-xxhash32/64. The library is built at first use with ``g++`` into
-``ceph_tpu_torch/build/`` (gitignored), named by a digest of the sources
-and flags, so a changed source is rebuilt; each build writes a temporary
-file and renames it into place, so processes building at once never see
-a partial library. All array arguments are numpy arrays; chunks are
-row-major (k, L) uint8.
+xxhash32/64. ``rt`` binds the second library, ``rt_native.cc`` (the
+store's embedded KV, block device and bitmap allocator).
+
+Both libraries are built at first use with ``g++`` (``build_library``)
+into ``ceph_tpu_torch/build/`` (gitignored), named by a digest of the
+sources and flags, so a changed source is rebuilt; each build writes a
+temporary file and renames it into place, so processes building at once
+never see a partial library. All array arguments are numpy arrays;
+chunks are row-major (k, L) uint8.
 """
 from __future__ import annotations
 
@@ -33,36 +36,42 @@ _u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 
 
-def library() -> Path:
-    """Path of the shared library for the current sources and flags."""
+def library_path(stem: str, sources: tuple[Path, ...]) -> Path:
+    """Where the shared library ``stem`` built from ``sources`` (the
+    compiled file, then the headers it includes) with CXX_FLAGS lies."""
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in SOURCES)
+        b"".join(p.read_bytes() for p in sources)
         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"ct_native-{digest}.so"
+    return BUILD / f"{stem}-{digest}.so"
 
 
-def _build(lib_path: Path) -> None:
+def build_library(lib_path: Path, source: Path) -> Path:
+    """Compile ``source`` with g++ into ``lib_path`` unless it is there."""
     if lib_path.exists():
-        return
+        return lib_path
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found on PATH: the port's C++ host core "
-                           "is built at first use")
-    BUILD.mkdir(parents=True, exist_ok=True)
+        raise RuntimeError("g++ not found on PATH: the port's C++ host "
+                           "libraries are built at first use")
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCES[0]), "-o", str(tmp)],
+    res = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(tmp)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"building {lib_path.name} failed (exit "
                            f"{res.returncode}):\n{res.stderr}")
     os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> Path:
+    """Path of the host core library for the current sources and flags."""
+    return library_path("ct_native", SOURCES)
 
 
 def _load() -> ctypes.CDLL:
-    path = library()
-    _build(path)
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(build_library(library(), SOURCES[0])))
     lib.ct_gf_mul.restype = ctypes.c_uint8
     lib.ct_gf_mul.argtypes = [ctypes.c_uint8, ctypes.c_uint8]
     lib.ct_gf_inv.restype = ctypes.c_uint8

@@ -6,5 +6,8 @@ package's ``ceph_tpu/utils``, copied as the port reaches them):
 - ``perf`` — counters registry (the PerfCounters role).
 - ``fault`` — fault injection points (the FaultInjector role).
 - ``denc`` — little-endian wire encoding (the denc.h role), for the
-  placement maps.
+  placement maps and the store's records.
+- ``buffer`` — BufferList, zero-copy scatter/gather (the bufferlist role).
+- ``compress`` — compressor plugins and BlueStore's policy helpers.
+- ``sloppy_crc`` — opportunistic per-block CRC tracking (SloppyCRCMap).
 """

@@ -48,6 +48,23 @@ OSDMap of that cluster (a replicated pool of 32,768 PGs and an EC pool of
 then 10 more OSDs marked out and a storm of misses over every PG, each
 row held against ``OSDMap.pg_to_up_acting_full``.
 
+Phase ``store`` drives the object store with the crc32c kernel as its
+checksum engine, in a temporary directory (it needs ``ST_FREE_BYTES``
+free and removes it at the end): a WalStore and a 4 GiB BlueStoreLite,
+each as twins, one with ``device_csum=True`` on the card and one with
+the C++ core's checksums, take the same transactions in turn: 256 RBD
+objects of 4 MiB (1 GiB), then on WalStore one checkpoint, umount and
+mount (one checksum call over all 262,144 blocks each), and on
+BlueStoreLite 16,384 aligned 4 KiB overwrites and reads of every object
+before and after a remount. Every read is held against the twin and a
+numpy model, every stored checksum against the C++ core's CRC32C, K2's
+launches against the device twin's checksum calls, and a byte flipped on
+the block file must fail its read. Each mix prints both twins' txn/s
+and GiB/s and the checksum calls' medians; each store shape (1, 1,024
+and 262,144 blocks of 4 KiB) prints the call taken apart (host packing,
+HtoD, kernel, DtoH, beside the C++ core) and K2's own time against its
+bound, its plain version and the copy bound.
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -62,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -124,6 +142,24 @@ PL_EDGE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 PL_EDGE_X = 4099
 PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
 PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
+
+#: The store phase: one OSD of an RBD pool. Objects of RBD's default size
+#: (rbd_default_order 22: 4 MiB), 1 GiB in all, on a 4 GiB BlueStoreLite
+#: with compression off (Ceph's default bluestore_compression_mode=none)
+#: and on a WalStore with compression off and a WAL never compacted on its
+#: own (one explicit checkpoint of the whole GiB); then fio-style
+#: randwrite bs=4k overwrites (4 KiB aligned, fio's default blockalign)
+#: from a seeded generator.
+ST_OBJECTS, ST_OBJECT_BYTES, ST_DEVICE_BYTES = 256, 4 << 20, 4 << 30
+ST_RANDWRITES = 16384
+ST_POOL = "1.0"
+ST_IMAGE = "rbd_data.10226b8b4567"
+#: Free disk the phase needs under its temporary directory: two twins of
+#: each store, a WalStore checkpoint written beside the one it replaces.
+ST_FREE_BYTES = 6 << 30
+#: Blocks per checksum call the phase times: a 4 KiB overwrite, a 4 MiB
+#: object write or read, a 1 GiB checkpoint.
+ST_SHAPES = {"1x4096": 1, "1024x4096": 1024, "262144x4096": 262144}
 
 
 def emit(obj: dict) -> None:
@@ -1024,6 +1060,348 @@ def placement_phase(dev) -> dict:
     return {"launches": launches, "timed": timed}
 
 
+def csum_call_split(cs, blocks: np.ndarray, reps: int) -> dict:
+    """One store checksum call (``Checksummer.calculate(blocks,
+    device=True)``: ``crc32c_batch`` on the card) taken apart, medians of
+    ``reps`` calls: host packing (``pack_blobs`` and the copy
+    ``words_to_tensor`` makes of read-only memory) on the host clock,
+    then HtoD, the kernel with its seed XOR, and DtoH with CUDA events;
+    beside the whole call and the C++ core's (``device=False``) on the
+    host clock."""
+    from ceph_tpu_torch.device import i32
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+
+    dev = cs.torch_device()
+    seed = i32(crc_ops.zeros_shift(cs.init_value, blocks.shape[-1]))
+    parts = {k: [] for k in ("pack_ms", "htod_ms", "kernel_ms", "dtoh_ms",
+                             "call_ms", "host_core_ms")}
+    out = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        words = crc_ops.pack_blobs(blocks)
+        if not words.flags.writeable:
+            words = words.copy()
+        src = torch.from_numpy(words.view(np.int32))
+        parts["pack_ms"].append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        x = src.to(dev)
+        ev[1].record()
+        c = crc_ops.crc0_words(x) ^ seed
+        ev[2].record()
+        out = c.cpu()
+        ev[3].record()
+        ev[3].synchronize()
+        for key, a, b in (("htod_ms", 0, 1), ("kernel_ms", 1, 2),
+                          ("dtoh_ms", 2, 3)):
+            parts[key].append(ev[a].elapsed_time(ev[b]))
+        t0 = time.perf_counter()
+        got = cs.calculate(blocks, device=True)
+        parts["call_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        host = cs.calculate(blocks)
+        parts["host_core_ms"].append((time.perf_counter() - t0) * 1e3)
+    check(np.array_equal(out.numpy().view(np.uint32), got)
+          and np.array_equal(got, host), "checksum call split vs the call")
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def store_phase(dev, rng, rates: dict) -> dict:
+    """Drive WalStore and BlueStoreLite on the card with device checksums
+    (see the module docstring), each beside a host-checksum twin, check
+    every byte and checksum, print a line per mix and return K2's launches
+    on the store path and its timed entries at the store's shapes."""
+    import filecmp
+    import os
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch import kernels, native
+    from ceph_tpu_torch.checksum import Checksummer
+    from ceph_tpu_torch.device import words_to_tensor
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.store import StoreError, create
+    from ceph_tpu_torch.store import transaction as tx
+    from ceph_tpu_torch.store.bluestore import BLOCK
+    from ceph_tpu_torch.utils import denc
+
+    n_obj, obj_bytes = ST_OBJECTS, ST_OBJECT_BYTES
+    per_obj = obj_bytes // BLOCK
+    threads = os.cpu_count() or 1
+    oids = [f"{ST_IMAGE}.{i:016x}".encode() for i in range(n_obj)]
+    objs = random_bytes(rng, (n_obj, obj_bytes))  # the model of the image
+    calls = {"device": [], "host": []}  # (blocks, device flag, seconds)
+    launches = 0
+
+    def recorded(store, twin):
+        inner = store._csum.calculate
+
+        def calculate(data, device=False):
+            t0 = time.perf_counter()
+            out = inner(data, device=device)
+            calls[twin].append((len(out), device, time.perf_counter() - t0))
+            return out
+
+        store._csum.calculate = calculate
+        return store
+
+    def twins(kind, path, **kw):
+        return {"device": recorded(create(kind, str(path / "device"),
+                                          device_csum=True, device=dev,
+                                          **kw), "device"),
+                "host": recorded(create(kind, str(path / "host"), **kw),
+                                 "host")}
+
+    def turns(stores, i):
+        """The twins in turn, the first of them alternating with ``i``:
+        whichever goes first pays for touching the shared input."""
+        pairs = list(stores.items())
+        return pairs if i % 2 == 0 else pairs[::-1]
+
+    def run(label, stores, n, txn_of) -> dict:
+        """Apply ``txn_of(i)`` for i < n to both twins in turn -> one
+        line: each twin's txn/s and GiB/s, K2's launches and the device
+        calls they match."""
+        mark = {t: len(c) for t, c in calls.items()}
+        spent = {t: 0.0 for t in stores}
+        nbytes = 0
+        kernels.reset_counts()
+        for i in range(n):
+            t, size = txn_of(i)
+            nbytes += size
+            for twin, s in turns(stores, i):
+                t0 = time.perf_counter()
+                s.apply_transaction(t)
+                spent[twin] += time.perf_counter() - t0
+        k2 = kernels.CRC32C.launches
+        line = mixline(label, mark, k2)
+        line.update({f"{twin}_txn_per_s": n / spent[twin] for twin in spent})
+        line.update({f"{twin}_GiB_per_s": nbytes / spent[twin] / 2**30
+                     for twin in spent})
+        line.update({"txns": n, "bytes": nbytes})
+        return line
+
+    def mixline(label, mark, k2) -> dict:
+        """K2's launches since ``mark`` against the twins' checksum
+        calls: one launch per device call, none for the host twin."""
+        nonlocal launches
+        dcalls = calls["device"][mark["device"]:]
+        hcalls = calls["host"][mark["host"]:]
+        check(all(d for _, d, _ in dcalls), f"{label}: a host call on the "
+                                            "device twin")
+        check(not any(d for _, d, _ in hcalls),
+              f"{label}: a device call on the host twin")
+        check(k2 == len(dcalls), f"{label}: {k2} K2 launches for "
+                                 f"{len(dcalls)} device checksum calls")
+        launches += k2
+        return {"phase": "store", "mix": label, "k2_launches": k2,
+                "device_calls": len(dcalls), "host_calls": len(hcalls),
+                "device_call_ms_p50": medians(dcalls),
+                "host_call_ms_p50": medians(hcalls)}
+
+    def medians(twin_calls) -> dict:
+        """Median ms of checksum calls by shape (blocks x 4 KiB)."""
+        by_shape = {}
+        for n_blocks, _, secs in twin_calls:
+            by_shape.setdefault(f"{n_blocks}x{BLOCK}", []).append(secs)
+        return {k: statistics.median(v) * 1e3 for k, v in by_shape.items()}
+
+    def check_onodes(stores, want, label) -> None:
+        """Every onode's checksums equal the C++ core's ``want``."""
+        for twin, s in stores.items():
+            for i, oid in enumerate(oids):
+                check(np.array_equal(
+                    np.array(s.colls[ST_POOL][oid].csums, np.uint32),
+                    want[i * per_obj:(i + 1) * per_obj]),
+                    f"{label}: {twin} onode checksums of object {i} vs "
+                    "the C++ core")
+
+    def fill(i):
+        t = tx.Transaction()
+        if i == 0:
+            t.create_collection(ST_POOL)
+        return t.write(ST_POOL, oids[i], 0, objs[i]), obj_bytes
+
+    def read_all(stores, label) -> dict:
+        """Read every object from both twins; each must equal the model."""
+        mark = {t: len(c) for t, c in calls.items()}
+        spent = {t: 0.0 for t in stores}
+        kernels.reset_counts()
+        for i, oid in enumerate(oids):
+            for twin, s in turns(stores, i):
+                t0 = time.perf_counter()
+                got = s.read(ST_POOL, oid)
+                spent[twin] += time.perf_counter() - t0
+                check(np.array_equal(np.frombuffer(got, np.uint8), objs[i]),
+                      f"{label}: {twin} read of object {i}")
+        line = mixline(label, mark, kernels.CRC32C.launches)
+        line.update({f"{twin}_GiB_per_s": n_obj * obj_bytes / spent[twin]
+                     / 2**30 for twin in spent})
+        return line
+
+    def remount(stores, label) -> dict:
+        mark = {t: len(c) for t, c in calls.items()}
+        kernels.reset_counts()
+        out = {}
+        for twin, s in stores.items():
+            t0 = time.perf_counter()
+            s.umount()
+            t1 = time.perf_counter()
+            s.mount()
+            out[f"{twin}_umount_s"] = t1 - t0
+            out[f"{twin}_mount_s"] = time.perf_counter() - t1
+        return {**mixline(label, mark, kernels.CRC32C.launches), **out}
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_store-"))
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= ST_FREE_BYTES,
+              f"the store phase needs {ST_FREE_BYTES / 2**30:.0f} GiB free "
+              f"under {root}, and {free / 2**30:.2f} GiB are")
+
+        # ---- WalStore: fill, one checkpoint, umount and mount
+        ws = twins("walstore", root / "walstore", compression=None,
+                   wal_compact_bytes=1 << 62)
+        emit(run("walstore_rbd_fill", ws, n_obj, fill))
+        mark = {t: len(c) for t, c in calls.items()}
+        kernels.reset_counts()
+        ckpt = {}
+        for twin, s in ws.items():
+            t0 = time.perf_counter()
+            s.compact()
+            ckpt[f"{twin}_checkpoint_s"] = time.perf_counter() - t0
+        line = {**mixline("walstore_checkpoint", mark,
+                          kernels.CRC32C.launches), **ckpt}
+        snaps = [root / "walstore" / t / "snap" for t in ws]
+        check(filecmp.cmp(*snaps, shallow=False),
+              "the twins' snapshots differ")
+        want = native.crc32c_batch(objs.reshape(-1, BLOCK), threads=threads)
+        buf = snaps[0].read_bytes()
+        off = 4 + 4 + 8 + 4  # magic, version, seq, collections
+        _, off = denc.dec_str(buf, off)
+        nobj, off = denc.dec_u32(buf, off)
+        check(nobj == n_obj, f"snapshot holds {nobj} objects")
+        for i in range(nobj):
+            oid, off = denc.dec_bytes(buf, off)
+            _, off = denc.dec_u8(buf, off)
+            n, off = denc.dec_u32(buf, off)
+            off += n  # the object's bytes
+            crcs, off = denc.dec_list(buf, off, denc.dec_u32)
+            check(oid == oids[i] and np.array_equal(
+                np.array(crcs, np.uint32),
+                want[i * per_obj:(i + 1) * per_obj]),
+                f"snapshot checksums of object {i} vs the C++ core")
+            for _ in range(2):
+                _, off = denc.dec_map(buf, off, denc.dec_bytes,
+                                      denc.dec_bytes)
+            _, off = denc.dec_bytes(buf, off)
+        del buf
+        emit(line)
+        emit(remount(ws, "walstore_remount"))
+        emit(read_all(ws, "walstore_read"))
+        for s in ws.values():
+            s.umount()
+        del ws
+        shutil.rmtree(root / "walstore")
+
+        # ---- BlueStoreLite: fill, 4 KiB overwrites, read, remount, read
+        bs = twins("bluestore", root / "bluestore", size=ST_DEVICE_BYTES)
+        emit(run("bluestore_rbd_fill", bs, n_obj, fill))
+        wobj = rng.integers(0, n_obj, ST_RANDWRITES)
+        wblk = rng.integers(0, per_obj, ST_RANDWRITES)
+        wdata = random_bytes(rng, (ST_RANDWRITES, BLOCK))
+
+        def randwrite(j):
+            o, b = int(wobj[j]), int(wblk[j])
+            objs[o, b * BLOCK:(b + 1) * BLOCK] = wdata[j]
+            return tx.Transaction().write(ST_POOL, oids[o], b * BLOCK,
+                                          wdata[j]), BLOCK
+
+        emit(run("bluestore_rbd_randwrite_4k", bs, ST_RANDWRITES,
+                 randwrite))
+        want = native.crc32c_batch(objs.reshape(-1, BLOCK), threads=threads)
+        check_onodes(bs, want, "after the overwrites")
+        emit(read_all(bs, "bluestore_read_verify"))
+        emit(remount(bs, "bluestore_remount"))
+        emit(read_all(bs, "bluestore_read_after_mount"))
+        check_onodes(bs, want, "from the KV after mount")
+
+        # one bad byte in one block on the device twin's block file
+        s = bs["device"]
+        victim, vblock = oids[n_obj // 2], 100
+        phys = s.colls[ST_POOL][victim].blocks[vblock]
+        s.umount()
+        with open(root / "bluestore" / "device" / "block", "r+b") as f:
+            f.seek(phys * BLOCK + 1)
+            byte = f.read(1)
+            f.seek(phys * BLOCK + 1)
+            f.write(bytes([byte[0] ^ 0x20]))
+        s.mount()
+        kernels.reset_counts()
+        try:
+            s.read(ST_POOL, victim)
+            caught = None
+        except StoreError as e:
+            caught = str(e)
+        check(caught is not None and f"block {vblock}" in caught,
+              f"a flipped byte in block {vblock} read back: {caught}")
+        check(kernels.CRC32C.launches == 1, "the bad read's verify launched K2")
+        launches += 1
+        emit({"phase": "store", "mix": "bluestore_bit_rot",
+              "caught": caught})
+        for s in bs.values():
+            s.umount()
+        del bs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- K2 at the store's shapes: the call taken apart, the kernel
+    # against its plain version, its bound and the copy bound
+    cs = Checksummer("crc32c", BLOCK, device=dev)
+    blocks = objs.reshape(-1, BLOCK)
+    timed = {}
+    for key, n in ST_SHAPES.items():
+        reps = 200 if n == 1 else 30 if n <= 1024 else 3
+        # what the stores hand the call: BlueStoreLite's blocks are a
+        # read-only view of joined bytes (copied once more on the way to
+        # the card), WalStore's checkpoint a fresh concatenation
+        given = (blocks[:n] if n > 1024 else
+                 np.frombuffer(blocks[:n].tobytes(), np.uint8).reshape(n, BLOCK))
+        call = csum_call_split(cs, given, reps)
+        if n == 1024:  # BlueStoreLite's join of 1,024 blocks, host only
+            rows = [blocks[i].tobytes() for i in range(n)]
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                np.frombuffer(b"".join(rows), np.uint8).reshape(n, BLOCK)
+            call["store_join_ms"] = (time.perf_counter() - t0) / reps * 1e3
+        split = profile_split(lambda: [cs.calculate(given, device=True)
+                                       for _ in range(reps)])
+        call["profile_per_call"] = {
+            k: split[k] / reps for k in ("htod_ms", "kernels_ms", "dtoh_ms")}
+        call["profile_idle_share"] = split["idle_share"]
+        x = words_to_tensor(blocks[:n].view(np.uint32), dev)
+        kernel = lambda: crc_ops.crc0_words(x)  # noqa: E731
+        plain = lambda: crc_ops.crc0_words_plain(x)  # noqa: E731
+        err = max_abs_err(kernel(), plain())
+        check(err == 0, f"store shape {key}: kernel and plain differ by {err}")
+        ms = time_ms(kernel, reps=50 if n < 262144 else 20, warmup=10)
+        plain_ms = time_ms(plain, reps=20 if n < 262144 else 5, warmup=1)
+        b_ms, b_by = bound(*crc_work(n, BLOCK // 4))
+        prof = profile_steps(kernel, reps=20)
+        copy_ms = max(n * BLOCK / rates["h2d_GB_per_s"],
+                      4 * n / rates["d2h_GB_per_s"]) / 1e6
+        timed[f"crc_store_{key}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err,
+            "device_ms": device_ms(prof), "copy_bound_ms": copy_ms}
+        emit({"phase": "time", "what": f"crc_store_{key}",
+              **timed[f"crc_store_{key}"], "call": call,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}})
+        del x
+    emit({"phase": "store_launches", "crc32c": launches})
+    return {"launches": launches, "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1037,6 +1415,7 @@ def main() -> int:
     from ceph_tpu_torch.ops import crc32c as crc_ops
     from ceph_tpu_torch.ops import gf8, rs
 
+    start = time.perf_counter()
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1140,7 +1519,8 @@ def main() -> int:
     want_present = (0, 2, 3, 4, 5, 6, 7, 8)
     surviving_want = torch.cat([data, parity], dim=1)[:, list(want_present)]
     wanted = codec.decode_batch(want_present, surviving_want, want=(1, 9))
-    csums = Checksummer("crc32c", CSUM_BLOCK).calculate(csum_data)
+    csums = Checksummer("crc32c", CSUM_BLOCK).calculate(csum_data,
+                                                        device=True)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     emit({"phase": "main_path_launches", **launches})
@@ -1242,7 +1622,10 @@ def main() -> int:
                   if any(s in n.lower() for s in ("cat", "copy", "memcpy"))]
         check(not copies, f"{key} launched copy kernels {copies}")
 
+    seconds = {"through_main_path": time.perf_counter() - start}
+
     # ---- phase 7: the OSD's EC dispatch engine (ECBatcher) at its shapes
+    t0 = time.perf_counter()
     rates = copy_rates()
     emit({"phase": "copy_rates", **rates})
     ecb = ecbatch_phase(dev, rng, rates)
@@ -1250,23 +1633,41 @@ def main() -> int:
         n = ecb["launches"][key]
         check(n > 0, f"the ecbatch mixes launched {key} {n} times")
     timed.update(ecb["timed"])
+    seconds["ecbatch"] = time.perf_counter() - t0
 
     # ---- phase 8: CRUSH placement (config 5, the rule engine, the
     # resolver)
+    t0 = time.perf_counter()
     pl = placement_phase(dev)
     timed.update(pl["timed"])
     pl_errs = timed.pop("placement_checks")
+    seconds["placement"] = time.perf_counter() - t0
+
+    # ---- phase 9: the object store (WalStore and BlueStoreLite with
+    # device checksums, each beside a host-checksum twin)
+    t0 = time.perf_counter()
+    st = store_phase(dev, rng, rates)
+    check(st["launches"] > 0, f"the store phase launched crc32c "
+                              f"{st['launches']} times")
+    timed.update(st["timed"])
+    seconds["store"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - start
+    emit({"phase": "seconds", **seconds})
 
     def shapes(*keys):  # every main-path shape a kernel was timed at
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
                                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "device_ms", "draws", "group",
-                                      "max_abs_err", "head_max_abs_err")
+                                      "device_ms", "copy_bound_ms", "draws",
+                                      "group", "max_abs_err",
+                                      "head_max_abs_err")
                                      if f in timed[k]}
                 for k in keys}
 
     def by_path(name):
-        return {"main_path": launches[name], "ecbatch": ecb["launches"][name]}
+        paths = {"main_path": launches[name], "ecbatch": ecb["launches"][name]}
+        if name == "crc32c":
+            paths["store"] = st["launches"]
+        return paths
 
     table = [
         {"name": "gf_matmul", "route": "cuda",
@@ -1287,10 +1688,13 @@ def main() -> int:
          "max_abs_err": max(errs["crc32c"], timed["crc_write"]["max_abs_err"],
                             timed["crc_repair"]["max_abs_err"],
                             timed["crc_checksummer"]["max_abs_err"],
-                            timed["crc_batch_write"]["max_abs_err"]),
+                            timed["crc_batch_write"]["max_abs_err"],
+                            *(timed[f"crc_store_{k}"]["max_abs_err"]
+                              for k in ST_SHAPES)),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
-                          "crc_batch_write")},
+                          "crc_batch_write",
+                          *(f"crc_store_{k}" for k in ST_SHAPES))},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",
          "replaces": "ceph_tpu/ops/crush.py:255",

@@ -402,3 +402,98 @@ def test_resolver_device_batches_launch_the_rule_kernel(cuda):
     assert r.stats.placement_batch_lookups == 2 == launches
     for ps, (up, upp, acting, ap) in enumerate(got):
         assert (up, upp, acting, ap) == om.pg_to_up_acting_full((1, ps))
+
+
+# ------------------------------------------------- the object store
+
+
+@pytest.mark.parametrize("n", [1, 1024, 777])
+def test_crc32c_kernel_at_the_store_shapes(cuda, n):
+    """K2 at the store's checksum shapes, (N, 4 KiB) blocks: one 4 KiB
+    overwrite, one 4 MiB object and a ragged count, through the
+    Checksummer's device engine against the plain version and the C++
+    core."""
+    from ceph_tpu_torch.checksum import Checksummer
+
+    blocks = np.random.default_rng(n).integers(0, 256, (n, 4096),
+                                               dtype=np.uint8)
+    x = words_to_tensor(blocks.view(np.uint32), cuda)
+    before = kernels.CRC32C.launches
+    assert torch.equal(crc32c.crc0_words(x), crc32c.crc0_words_plain(x))
+    assert kernels.CRC32C.launches == before + 1
+    cs = Checksummer("crc32c", 4096, device=cuda)
+    got = cs.calculate(blocks, device=True)
+    assert kernels.CRC32C.launches == before + 2
+    assert np.array_equal(got, native.crc32c_batch(blocks))
+    assert np.array_equal(got, cs.calculate(blocks))
+    built = crc32c._kernel_constants.cache_info().misses
+    cs.calculate(blocks, device=True)  # the W = 1,024 plan is cached
+    assert crc32c._kernel_constants.cache_info().misses == built
+
+
+@pytest.mark.parametrize("kind", ["bluestore", "walstore"])
+def test_store_with_device_checksums_equals_its_host_twin(cuda, kind,
+                                                           tmp_path):
+    """One schedule through a store that checksums on the card and a
+    twin that checksums on the C++ core: equal reads, equal stored
+    checksums (BlueStore onodes, WalStore snapshot bytes), one K2 launch
+    per device checksum call, and a flipped byte caught on the card."""
+    from ceph_tpu_torch.store import StoreError, create
+    from ceph_tpu_torch.store import transaction as tx
+
+    rng = np.random.default_rng(6)
+    objs = {b"rbd_data.%016x" % i: rng.integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes() for i in range(8)}
+    kw = {"compression": None}
+    if kind == "bluestore":
+        kw["size"] = 64 << 20
+    stores = {"device": create(kind, str(tmp_path / "d"), device_csum=True,
+                               device=cuda, **kw),
+              "host": create(kind, str(tmp_path / "h"), **kw)}
+    before = kernels.CRC32C.launches
+    for i, (oid, data) in enumerate(objs.items()):
+        t = tx.Transaction()
+        if i == 0:
+            t.create_collection("1.0")
+        t.write("1.0", oid, 0, data)
+        t.write("1.0", oid, 4096 * (i + 1), data[:4096])  # one block again
+        for s in stores.values():
+            s.apply_transaction(t)
+    for s in stores.values():
+        s.apply_transaction(tx.Transaction().write(
+            "1.0", next(iter(objs)), 100, b"small"))
+    host = stores["host"]
+    want = {oid: host.read("1.0", oid) for oid in objs}
+    for oid in objs:
+        assert stores["device"].read("1.0", oid) == want[oid]
+    if kind == "bluestore":
+        # 9 writes + 8 reads on the card, one launch each
+        assert kernels.CRC32C.launches == before + 17
+        for oid in objs:
+            d = stores["device"].colls["1.0"][oid]
+            h = stores["host"].colls["1.0"][oid]
+            assert d.csums == h.csums
+            blocks = np.frombuffer(want[oid], np.uint8).reshape(-1, 4096)
+            assert d.csums == native.crc32c_batch(blocks).tolist()
+        s = stores["device"]
+        oid = next(iter(objs))
+        phys = s.colls["1.0"][oid].blocks[3]
+        s.umount()
+        with open(tmp_path / "d" / "block", "r+b") as f:
+            f.seek(phys * 4096)
+            f.write(b"\xff\x00")
+        s.mount()
+        with pytest.raises(StoreError, match="block 3"):
+            s.read("1.0", oid)
+        host.umount()
+    else:
+        for s in stores.values():
+            s.umount()  # the checkpoint: one launch for the device twin
+        assert kernels.CRC32C.launches == before + 1
+        assert ((tmp_path / "d" / "snap").read_bytes()
+                == (tmp_path / "h" / "snap").read_bytes())
+        s = create(kind, str(tmp_path / "d"), device_csum=True, device=cuda,
+                   **kw)  # mount verifies on the card
+        assert kernels.CRC32C.launches == before + 2
+        assert all(s.read("1.0", oid) == want[oid] for oid in objs)
+        s.umount()

@@ -78,7 +78,8 @@ def test_no_device_and_no_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         load_codec({"plugin": "rs_tpu", "k": "8", "m": "3"})
     with pytest.raises(RuntimeError, match="CUDA"):
-        Checksummer("crc32c", 4096)
+        Checksummer("crc32c", 4096).calculate(np.zeros(4096, np.uint8),
+                                              device=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         crc32c.crc32c_batch(np.zeros((1, 8), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -31,7 +31,7 @@ def test_build_is_safe_under_concurrent_builders(tmp_path, monkeypatch):
 
     def build():
         try:
-            nt._build(path)
+            nt.build_library(path, nt.SOURCES[0])
         except Exception as e:  # reported below
             errors.append(e)
 
