@@ -8,10 +8,12 @@ reference so each module's counterpart is easy to find:
                 and the int32-carries-uint32 packed-word convention
   kernels.py    nvcc build + ctypes binding of csrc/*.cu, launch counters
   csrc/         hand-written CUDA kernels for sm_90a
-  ops/          gf8 (host field math), rs (GF(2^8) matmul), crc32c,
-                crush (Jenkins hash, crush_ln, straw2)
+  ops/          gf8 (host field math), rs (GF(2^8) matmul), gf2 (the
+                bitmatrix codes' XOR schedule), crc32c, crush (Jenkins
+                hash, crush_ln, straw2)
   models/       datapath: the batched EC write / repair step
-  ec/           codec seam: ErasureCode base, registry, rs_tpu, isa
+  ec/           codec seam: ErasureCode base, registry, rs_tpu, isa,
+                bitmatrix, clay, lrc, shec
   checksum/     the BlueStore Checksummer (crc32c family, xxhash): the
                 C++ core by default, the crc32c kernel with device=True
   cluster/      the OSD's ECBatcher and stripe layout

@@ -312,9 +312,10 @@ class ECBatcher:
         planes — rebuild the single lost cell (B, 1, su) uint8. A
         recovery storm's stripes amortize into one stacked dispatch
         per (pattern, slice-geometry) bucket; counted with the decode
-        counters (it IS the degraded path's dispatch). No codec of the
-        port has a batched sub-chunk repair yet (Clay is not ported):
-        the dispatch fails with "no batched sub-chunk repair"."""
+        counters (it IS the degraded path's dispatch). Clay has the
+        batched sub-chunk repair (``repair_batch`` on its device route,
+        ``repair_cells_host`` on the host engine); for a codec with
+        neither the dispatch fails with "no batched sub-chunk repair"."""
         key = ("rep", codec_profile_key(codec), cells.shape[-1],
                tuple(present), tuple(want))
         return await self._submit(key, codec, cells)

@@ -33,7 +33,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import resolve, words_to_tensor
 
 
 class ECError(Exception):
@@ -223,6 +223,13 @@ class ErasureCode:
         decoded = self.decode(want, chunks)
         return np.concatenate([decoded[i] for i in want])
 
+    def _words(self, data) -> torch.Tensor:
+        """A (B, C, W) batch for the batched API as int32 words: a tensor
+        as given, numpy uint32 copied to the codec's device."""
+        if isinstance(data, torch.Tensor):
+            return data
+        return words_to_tensor(np.asarray(data), self.device)
+
     # ---------------------------------------------- subclass obligations
 
     def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:
@@ -284,3 +291,5 @@ def _as_u8(data) -> np.ndarray:
 
 from .registry import PluginRegistry, instance, load_codec  # noqa: E402,F401
 from . import rs_plugin, isa_plugin  # noqa: E402,F401  (self-registering)
+from . import lrc_plugin, shec_plugin, clay_plugin  # noqa: E402,F401
+from . import bitmatrix_plugin  # noqa: E402,F401

@@ -23,9 +23,9 @@ Beside the byte API is the batched API the EC backend uses:
 stripe batches on the codec's torch device, one kernel launch for the
 whole batch, whatever the backend.
 
-Not yet ported (raise ``ECError``): the bit-matrix technique family
-(liberation, blaum_roth, liber8tion, cauchy_bm), which the JAX package
-hands to its bitmatrix codec.
+The bit-matrix technique family (liberation, blaum_roth, liber8tion,
+cauchy_bm) hands the codec over to ``bitmatrix_plugin.BitmatrixCodec`` at
+``init``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -41,7 +41,6 @@ from . import ECError, ErasureCode
 from .registry import register
 
 TECHNIQUES = ("reed_sol_van", "reed_sol_r6_op", "cauchy_orig", "cauchy_good")
-BITMATRIX_TECHNIQUES = ("blaum_roth", "liberation", "liber8tion", "cauchy_bm")
 
 
 @functools.lru_cache(maxsize=256)
@@ -109,10 +108,13 @@ class RSCodec(ErasureCode):
         self.technique = self.profile.get(
             "technique", self.DEFAULT_TECHNIQUE
         )
-        if self.technique in BITMATRIX_TECHNIQUES:
-            raise ECError(
-                f"bit-matrix technique {self.technique!r} is not yet ported "
-                "to ceph_tpu_torch")
+        # jerasure's bit-matrix technique family dispatches to the
+        # bitmatrix codec (ErasureCodeJerasure.h:163-246 techniques)
+        from .bitmatrix_plugin import BitmatrixCodec
+
+        if self.technique in BitmatrixCodec.DEFAULT_W:
+            self.__class__ = BitmatrixCodec
+            return self.init(profile)
         self.profile.setdefault("technique", self.technique)
         self.k = self.to_int("k", self.DEFAULT_K)
         self.m = self.to_int("m", self.DEFAULT_M)
@@ -192,13 +194,6 @@ class RSCodec(ErasureCode):
         return out
 
     # --------------------------------------------------------- batched
-
-    def _words(self, data) -> torch.Tensor:
-        """A (B, C, W) batch as int32 words: a tensor as given, numpy
-        uint32 copied to the codec's device."""
-        if isinstance(data, torch.Tensor):
-            return data
-        return words_to_tensor(np.asarray(data), self.device)
 
     def encode_batch(self, data) -> torch.Tensor:
         """(B, k, W) words -> (B, m, W) parity, one kernel launch."""

@@ -163,7 +163,9 @@ STRAW2 = Kernel("straw2", "straw2.cu", "straw2_launch",
                 [_P, _P, _P, _I, _P, _L, _U, _P, _P, _P])
 CRUSH_RULE = Kernel("crush_rule", "crush_rule.cu", "crush_rule_launch",
                     [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P])
-KERNELS = (GF_MATMUL, CRC32C, STRAW2, CRUSH_RULE)
+GF2_XOR = Kernel("gf2_xor", "gf2_xor.cu", "gf2_xor_launch",
+                 [_P, _P, _P, _L, _I, _I, _I, _L, _P])
+KERNELS = (GF_MATMUL, CRC32C, STRAW2, CRUSH_RULE, GF2_XOR)
 
 
 def build_all() -> float:
@@ -216,6 +218,32 @@ def gf_matmul(x: torch.Tensor, frags: torch.Tensor, rows: int) -> torch.Tensor:
     out = torch.empty((b, rows, w), dtype=torch.int32, device=x.device)
     GF_MATMUL.launch(x.device, x.data_ptr(), out.data_ptr(), frags.data_ptr(),
                      b, rows, cols, w)
+    return out
+
+
+#: Most input rows gf2_xor.cu takes: one 4 B word of each row in its 32 KiB
+#: of shared memory.
+GF2_MAX_ROWS = 8192
+
+
+def gf2_xor(rows: torch.Tensor, plan: torch.Tensor) -> torch.Tensor:
+    """rows (N, C, L) int32 words on the card, plan (R, T) int32 gather
+    indices on the same card (index C: the zero row; ops/gf2.py xor_plan)
+    -> (N, R, L) int32, out[n, r] = XOR over t of rows_ext[n, plan[r, t]],
+    on the kernel."""
+    _check_words(rows, 3, "rows")
+    _check_words(plan, 2, "plan")
+    if plan.device != rows.device or plan.shape[1] < 1:
+        raise ValueError(f"plan {tuple(plan.shape)} on {plan.device} does not "
+                         f"fit rows {tuple(rows.shape)} on {rows.device}")
+    n, c, l = rows.shape
+    r, t = plan.shape
+    if c > GF2_MAX_ROWS:
+        raise ValueError(f"{c} input rows: the kernel takes at most "
+                         f"{GF2_MAX_ROWS}")
+    out = torch.empty((n, r, l), dtype=torch.int32, device=rows.device)
+    GF2_XOR.launch(rows.device, rows.data_ptr(), out.data_ptr(),
+                   plan.data_ptr(), n, c, r, t, l)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Math kernels: GF(2^8) / Reed-Solomon, CRC32C and CRUSH straw2.
+"""Math kernels: GF(2^8) / Reed-Solomon, the GF(2) XOR schedule of the
+bitmatrix codes, CRC32C and CRUSH straw2.
 
 Each device function ships in two forms, chosen by the device of the
 tensor it is given:

@@ -65,6 +65,22 @@ and 262,144 blocks of 4 KiB) prints the call taken apart (host packing,
 HtoD, kernel, DtoH, beside the C++ core) and K2's own time against its
 bound, its plain version and the copy bound.
 
+Phase ``codecs`` drives the other codec families on the card: the GF(2)
+XOR kernel (K5) against its plain version at its edges (``gf2_edge_cases``);
+a ``jerasure`` liber8tion k=8, m=2 codec at the write step's unit (256
+stripes of 4 MiB, 1 GiB), ``encode_crc_batch`` exact against the host
+engine and the C++ core's CRC32C on 16 sampled stripes and against the
+plain versions in full, and ``decode_batch`` with data cells 1 and 6 lost;
+K5 timed at that encode and decode (CUDA events, torch.profiler device
+time, bound, plain version, codec step); Clay k=4, m=2, d=5 on 64 stripes
+of 4 MiB (its rounds run on the host, its MDS matmuls on K1 and its CRCs
+on K2): an encode, a two-loss decode and a single-loss sub-chunk repair,
+with the repair's helper bytes beside an RS decode's; LRC k=4, m=2, l=3 at
+1 GiB: an encode and one local-group decode; and an ECBatcher at the OSD's
+4 KiB cells over 64 Clay rebuilds of one shard (128 stripes each, exact
+against ``repair_cells_host``) and 64 liber8tion writes of 128 stripes
+(exact against the host engine and the C++ core's CRC32C).
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -74,6 +90,7 @@ device is present. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import statistics
 import subprocess
@@ -160,6 +177,33 @@ ST_FREE_BYTES = 6 << 30
 #: Blocks per checksum call the phase times: a 4 KiB overwrite, a 4 MiB
 #: object write or read, a 1 GiB checkpoint.
 ST_SHAPES = {"1x4096": 1, "1024x4096": 1024, "262144x4096": 262144}
+
+#: The codecs phase: the other codec families. liber8tion k=8, m=2 (w=8;
+#: tools/thrash.py runs the bitmatrix family at m=2) at the rs write step's
+#: unit, 256 stripes of 4 MiB (512 KiB cells, 1 GiB), data cells 1 and 6
+#: lost for the decode, 16 stripes checked on the host; Clay k=4, m=2, d=5
+#: (the example of Ceph's Clay documentation) on 64 stripes of 4 MiB, 8
+#: checked on the host engine, chunks 1 and 4 lost for the decode, chunk 2
+#: for the sub-chunk repair; LRC k=4, m=2, l=3 (the example of Ceph's LRC
+#: documentation) on 256 stripes of 4 MiB, data chunk 0 lost.
+CD_STRIPE = 4 << 20
+CD_BM_PROFILE = {"plugin": "jerasure", "technique": "liber8tion", "k": "8",
+                 "m": "2"}
+CD_BM_B, CD_BM_CELL, CD_BM_LOST, CD_SAMPLE = 256, 512 * KIB, (1, 6), 16
+CD_CLAY_PROFILE = {"plugin": "clay", "k": "4", "m": "2", "d": "5"}
+CD_CLAY_B, CD_CLAY_SAMPLE, CD_CLAY_LOST, CD_CLAY_REPAIR = 64, 8, (1, 4), 2
+CD_LRC_PROFILE = {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}
+CD_LRC_B, CD_LRC_LOST = 256, 0
+#: The codecs phase's ECBatcher at the OSD's 4 KiB cells, per mix
+#: (submissions, stripes per submission, concurrent submitters): Clay
+#: rebuilds of chunk CD_ECB_REPAIR and liber8tion full-object writes.
+CD_ECB_MIXES = {"clay_recovery": (64, 128, 16),
+                "liber8tion_write": (64, 128, 16)}
+CD_ECB_REPAIR = 2
+#: osd_ec_cold_shape_bytes for that batcher: the Clay rebuilds move 84 MB
+#: of helper slices, under the default 256 MiB that would keep every round
+#: on the host engine. A warm-up crosses it before the timed mix.
+CD_ECB_COLD_BYTES = 8 << 20
 
 
 def emit(obj: dict) -> None:
@@ -1402,6 +1446,452 @@ def store_phase(dev, rng, rates: dict) -> dict:
     return {"launches": launches, "timed": timed}
 
 
+def gf2_bound(n: int, c: int, r: int, length: int,
+              terms: int) -> tuple[float, str]:
+    """Least time (ms) of one GF(2) XOR schedule on the card: C words in
+    and R out per column of every stripe over the HBM rate, or the XORs
+    the plan's terms need on the int32 ALU, whichever is larger."""
+    t_bytes = 4.0 * n * length * (c + r) / HBM_BYTES_PER_S * 1e3
+    t_ops = float(n) * length * terms / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gf2_edge_cases() -> dict:
+    """name -> (plan (R, T) int32, rows shape (N, C, L)): the GF(2) XOR
+    kernel's edges. Each technique's encode plan (blaum_roth w=6,
+    liberation w=7, liber8tion w=8, cauchy_bm) with L on the 16 B path
+    and an odd L on the 4 B path, every two-erasure decode plan of
+    blaum_roth k=6, one term a row, a row of pads only, one stripe, L = 1,
+    a plan too large for shared memory and C past the 16 B path's
+    limit."""
+    from ceph_tpu_torch.ec.bitmatrix_plugin import _bitmatrix, _want_xor_plan
+    from ceph_tpu_torch.ops import gf2
+
+    rng = np.random.default_rng(7)
+    cases = {}
+    for tech, k, m, w in (("blaum_roth", 6, 2, 6), ("liberation", 7, 2, 7),
+                          ("liber8tion", 8, 2, 8), ("cauchy_bm", 6, 3, 8)):
+        plan = gf2.xor_plan(_bitmatrix(tech, k, m, w))
+        cases[f"encode_{tech}"] = (plan, (3, k * w, 4096))
+        cases[f"encode_{tech}_odd_L"] = (plan, (2, k * w, 1001))
+    for erase in itertools.combinations(range(8), 2):
+        present = tuple(i for i in range(8) if i not in erase)
+        plan = _want_xor_plan("blaum_roth", 6, 2, 6, present, erase)
+        cases["decode_blaum_roth_lost_%d_%d" % erase] = (
+            plan, (2, 36, 333 if sum(erase) % 2 else 512))
+    cases["one_term"] = (np.array([[3], [0], [5], [6]], np.int32),
+                         (4, 6, 100))
+    pads = rng.integers(0, 10, (5, 4), dtype=np.int32)
+    pads[2] = 10
+    cases["all_pad_row"] = (pads, (3, 10, 64))
+    cases["one_stripe"] = (gf2.xor_plan(_bitmatrix("liber8tion", 8, 2, 8)),
+                           (1, 64, 16384))
+    cases["L_one"] = (rng.integers(0, 11, (6, 5), dtype=np.int32), (5, 10, 1))
+    cases["plan_in_global"] = (rng.integers(0, 97, (128, 64), dtype=np.int32),
+                               (2, 96, 64))
+    cases["wide_C"] = (rng.integers(0, 2101, (4, 3), dtype=np.int32),
+                       (1, 2100, 8))
+    return cases
+
+
+def repair_slices(codec, every: np.ndarray, lost: int):
+    """A Clay single-loss repair plan over (B, n, su) cells -> (helper
+    chunks in order, (B, d, su/q) uint8 repair-plane slices)."""
+    n = codec.k + codec.m
+    plan = codec.minimum_to_decode([lost], [c for c in range(n) if c != lost])
+    check(lost not in plan and len(plan) == codec.d,
+          f"Clay repair plan of chunk {lost}: {sorted(plan)}")
+    order = sorted(plan)
+    sub = every.shape[-1] // codec.get_sub_chunk_count()
+    return tuple(order), np.ascontiguousarray(np.stack([np.concatenate(
+        [every[:, c, o * sub:(o + cnt) * sub] for o, cnt in plan[c]], axis=1)
+        for c in order], axis=1))
+
+
+def codecs_phase(dev, rng) -> dict:
+    """The bitmatrix, Clay and LRC codecs on the card (see the module
+    docstring): K5 against its plain version at its edges, then each codec
+    path with every kernel's count set to 0 just before it and read just
+    after, each result checked exactly; K5 timed at the full-width encode
+    and decode. Returns the launches of those runs by kernel, the edges'
+    largest error, the timed entries and the seconds of each part."""
+    import os
+
+    from ceph_tpu_torch import kernels, native
+    from ceph_tpu_torch.cluster import ECBatcher
+    from ceph_tpu_torch.cluster.stripe import effective_stripe_unit
+    from ceph_tpu_torch.device import i32, tensor_to_words, words_to_tensor
+    from ceph_tpu_torch.ec import load_codec
+    from ceph_tpu_torch.ec.bitmatrix_plugin import _want_xor_plan
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.ops import gf2, rs
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.perf import PerfCounters
+
+    threads = os.cpu_count() or 1
+    seconds, timed = {}, {}
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+
+    def rand_cells(shape) -> torch.Tensor:
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    walls = {}
+
+    def counted(run, wall=None):
+        """``run()`` with every kernel's count set to 0 just before it ->
+        (its result, the counts just after); the counts add to the
+        phase's launches, and ``walls[wall]`` keeps its wall seconds."""
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t_run = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        if wall is not None:
+            walls[wall] = time.perf_counter() - t_run
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        for key, v in counts.items():
+            launches[key] += v
+        return out, counts
+
+    def plain_crcs(cells: torch.Tensor, cell_bytes: int) -> torch.Tensor:
+        seed = i32(crc_ops.zeros_shift(crc_ops.CRC_SEED, cell_bytes))
+        return crc_ops.crc0_words_plain(cells) ^ seed
+
+    def host_crcs(cells: np.ndarray) -> np.ndarray:
+        """(B, n, su) uint8 -> (B, n) uint32 on the C++ core."""
+        return native.crc32c_batch(cells.reshape(-1, cells.shape[-1]),
+                                   threads=threads).reshape(cells.shape[:2])
+
+    # ---- K5 against its plain version at the edges
+    t0 = time.perf_counter()
+    edges = gf2_edge_cases()
+    edge_err = 0
+    for name, (plan, shape) in edges.items():
+        rows = words_to_tensor(rng.integers(0, 2**32, shape, dtype=np.uint32),
+                               dev)
+        before = kernels.GF2_XOR.launches
+        got = gf2.gf2_apply(plan, rows)
+        torch.cuda.synchronize()
+        check(kernels.GF2_XOR.launches == before + 1, f"gf2 {name} launches")
+        err = max_abs_err(got, gf2.gf2_apply_plain(plan, rows))
+        check(err == 0, f"gf2_xor {name}: kernel and plain differ by {err}")
+        edge_err = max(edge_err, err)
+    emit({"phase": "codecs_gf2_vs_plain", "cases": len(edges),
+          "max_abs_err": edge_err})
+    seconds["edges"] = time.perf_counter() - t0
+
+    # ---- liber8tion k=8, m=2 at full width: 256 stripes of 4 MiB
+    t0 = time.perf_counter()
+    bm = load_codec(CD_BM_PROFILE, device=dev)
+    k, m, w = bm.k, bm.m, bm.w
+    words, cb = CD_BM_CELL // 4, CD_BM_CELL
+    data = rand_cells((CD_BM_B, k, words))
+    (parity, crcs), enc = counted(lambda: bm.encode_crc_batch(data, cb))
+    check(enc["gf2_xor"] == 1 and enc["crc32c"] == 1,
+          f"liber8tion encode launches {enc}")
+    pick = torch.from_numpy(np.sort(rng.choice(CD_BM_B, CD_SAMPLE,
+                                               replace=False))).to(dev)
+    cells = rs.unpack_u32(tensor_to_words(data[pick]))
+    host_par = gf2.gf2_encode_cells_np(bm._enc_plan, w, cells)
+    check(np.array_equal(rs.unpack_u32(tensor_to_words(parity[pick])),
+                         host_par),
+          "liber8tion parity vs the host engine on the sampled stripes")
+    check(np.array_equal(tensor_to_words(crcs[pick]), host_crcs(
+        np.concatenate([cells, host_par], axis=1))),
+        "liber8tion CRCs vs the C++ core on the sampled stripes")
+    del cells, host_par
+    rows = data.view(CD_BM_B, k * w, words // w)
+    check(torch.equal(parity.view(CD_BM_B, m * w, words // w),
+                      gf2.gf2_apply_plain(bm._enc_plan, rows)),
+          "liber8tion parity vs plain")
+    check(torch.equal(crcs, torch.cat([plain_crcs(data, cb),
+                                       plain_crcs(parity, cb)], dim=1)),
+          "liber8tion CRCs vs plain")
+    present = tuple(i for i in range(k + m) if i not in CD_BM_LOST)
+    surv = torch.cat([data, parity], dim=1)[:, list(present)].contiguous()
+    rebuilt, dec = counted(lambda: bm.decode_batch(present, surv,
+                                                   want=CD_BM_LOST))
+    check(dec["gf2_xor"] == 1, f"liber8tion decode launches {dec}")
+    check(torch.equal(rebuilt, data[:, list(CD_BM_LOST)]),
+          "liber8tion decode rebuilt data cells 1 and 6")
+    dplan = _want_xor_plan(bm.technique, k, m, w, present, CD_BM_LOST)
+    srows = surv.view(CD_BM_B, k * w, words // w)
+    check(torch.equal(rebuilt.view(CD_BM_B, -1, words // w),
+                      gf2.gf2_apply_plain(dplan, srows)),
+          "liber8tion decode vs plain")
+    for key, plan, x, step in (
+            ("gf2_encode", bm._enc_plan, rows,
+             lambda: bm.encode_crc_batch(data, cb)),
+            ("gf2_decode", dplan, srows,
+             lambda: bm.decode_batch(present, surv, want=CD_BM_LOST))):
+        err = max_abs_err(gf2.gf2_apply(plan, x), gf2.gf2_apply_plain(plan, x))
+        check(err == 0, f"{key}: kernel and plain differ by {err}")
+        ms = time_ms(lambda: gf2.gf2_apply(plan, x))
+        plain_ms = time_ms(lambda: gf2.gf2_apply_plain(plan, x), reps=5,
+                           warmup=1)
+        n, c, length = x.shape
+        b_ms, b_by = gf2_bound(n, c, plan.shape[0], length,
+                               int((plan < c).sum()))
+        prof = profile_steps(lambda: gf2.gf2_apply(plan, x))
+        dev_ms = device_ms(prof)
+        timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err,
+                      "device_ms": dev_ms, "step_ms": time_ms(step, reps=10)}
+        emit({"phase": "time", "what": key, "shape": [n, c, length],
+              "plan": list(plan.shape), **timed[key],
+              "share_of_bound": b_ms / ms,
+              "device_share_of_bound": b_ms / dev_ms if dev_ms else None,
+              "profile": {kk: prof[kk] for kk in PROFILE_CLOCK}})
+    emit({"phase": "codecs", "codec": "liber8tion", "stripes": CD_BM_B,
+          "k": k, "m": m, "w": w, "cell_bytes": cb,
+          "sampled_stripes": CD_SAMPLE, "lost": list(CD_BM_LOST),
+          "launches": {"encode": enc, "decode": dec}, "exact": True})
+    del data, parity, crcs, surv, rebuilt, rows, srows
+    seconds["liber8tion"] = time.perf_counter() - t0
+
+    # ---- Clay k=4, m=2, d=5 on 4 MiB stripes: host rounds, K1 and K2
+    t0 = time.perf_counter()
+    clay = load_codec(CD_CLAY_PROFILE, device=dev)
+    k, m = clay.k, clay.m
+    su = CD_STRIPE // k
+    check(su % clay.get_alignment() == 0, f"Clay cell {su} unaligned")
+    data = rand_cells((CD_CLAY_B, k, su // 4))
+    (parity, crcs), enc = counted(lambda: clay.encode_crc_batch(data, su),
+                                  "encode")
+    cells = rs.unpack_u32(tensor_to_words(data))
+    par = rs.unpack_u32(tensor_to_words(parity))
+    every = np.concatenate([cells, par], axis=1)
+    del cells
+    pick = np.sort(rng.choice(CD_CLAY_B, CD_CLAY_SAMPLE, replace=False))
+    check(np.array_equal(par[pick], clay.encode_cells_host(
+        every[pick, :k])), "Clay parity vs the host engine on the sampled "
+                           "stripes")
+    check(np.array_equal(tensor_to_words(crcs), host_crcs(every)),
+          "Clay CRCs vs the C++ core")
+    present = tuple(i for i in range(k + m) if i not in CD_CLAY_LOST)
+    surv = words_to_tensor(rs.pack_u32(every[:, list(present)]), dev)
+    rebuilt, dec = counted(lambda: clay.decode_batch(present, surv,
+                                                     want=CD_CLAY_LOST),
+                           "decode")
+    check(np.array_equal(rs.unpack_u32(tensor_to_words(rebuilt)),
+                         every[:, list(CD_CLAY_LOST)]),
+          f"Clay decode rebuilt chunks {CD_CLAY_LOST}")
+    order, slices = repair_slices(clay, every, CD_CLAY_REPAIR)
+    helpers = words_to_tensor(rs.pack_u32(slices), dev)
+    repaired, rep = counted(lambda: clay.repair_batch(
+        order, helpers, (CD_CLAY_REPAIR,)), "repair")
+    check(np.array_equal(rs.unpack_u32(tensor_to_words(repaired))[:, 0],
+                         every[:, CD_CLAY_REPAIR]),
+          f"Clay repair rebuilt chunk {CD_CLAY_REPAIR}")
+    clay_counts = {"encode": enc, "decode": dec, "repair": rep}
+    for part, counts in clay_counts.items():
+        check(counts["gf_matmul"] > 0, f"Clay {part} launched K1 {counts}")
+    check(enc["crc32c"] == 1, f"Clay encode launched K2 {enc}")
+    emit({"phase": "codecs", "codec": "clay", "stripes": CD_CLAY_B,
+          "k": k, "m": m, "d": clay.d, "cell_bytes": su,
+          "sub_chunks": clay.get_sub_chunk_count(),
+          "lost": list(CD_CLAY_LOST), "repaired": CD_CLAY_REPAIR,
+          "repair_helper_bytes": int(slices.nbytes),
+          "rs_decode_bytes": CD_CLAY_B * k * su,
+          "helper_share_of_rs": slices.nbytes / (CD_CLAY_B * k * su),
+          "launches": clay_counts, "op_seconds": dict(walls),
+          "data_GiB_per_s": {op: CD_CLAY_B * CD_STRIPE / sec / 2**30
+                             for op, sec in walls.items()},
+          "seconds": time.perf_counter() - t0, "exact": True})
+    del data, parity, crcs, every, par, surv, rebuilt, slices, helpers
+    seconds["clay"] = time.perf_counter() - t0
+
+    # ---- LRC k=4, m=2, l=3 at 1 GiB: K1 and K2, one local-group decode
+    t0 = time.perf_counter()
+    lrc = load_codec(CD_LRC_PROFILE, device=dev)
+    k, m = lrc.k, lrc.m
+    su = CD_STRIPE // k
+    data = rand_cells((CD_LRC_B, k, su // 4))
+    (parity, crcs), enc = counted(lambda: lrc.encode_crc_batch(data, su))
+    check(enc["gf_matmul"] == 1 and enc["crc32c"] == 1,
+          f"LRC encode launches {enc}")
+    check(torch.equal(parity, rs.gf_matmul_plain(lrc.matrix, data)),
+          "LRC parity vs plain")
+    check(torch.equal(crcs, torch.cat([plain_crcs(data, su),
+                                       plain_crcs(parity, su)], dim=1)),
+          "LRC CRCs vs plain")
+    n = lrc.get_chunk_count()
+    lost = lrc.chunk_index(CD_LRC_LOST)
+    need = sorted(lrc.minimum_to_decode([lost], [p for p in range(n)
+                                                 if p != lost]))
+    check(len(need) < k, f"LRC local repair reads {need}")
+    full = torch.cat([data, parity], dim=1)  # generator order
+    pg = tuple(lrc._position_to_generator(p) for p in need)
+    surv = full[:, list(pg)].contiguous()
+    rebuilt, dec = counted(lambda: lrc.decode_batch(pg, surv,
+                                                    want=(CD_LRC_LOST,)))
+    check(dec["gf_matmul"] == 1, f"LRC decode launches {dec}")
+    check(torch.equal(rebuilt[:, 0], data[:, CD_LRC_LOST]),
+          "LRC local-group decode")
+    # K1 and K2 at the codec paths' shapes: LRC's encode at 1 GiB, and
+    # one Clay encode round (4 survivor nodes x every plane of the 64
+    # stripes -> the 2 parity nodes)
+    clay_rm = clay.mds.decode_matrix_for((0, 1, 2, 3), (4, 5))
+    clay_x = rand_cells((1, 4, CD_CLAY_B * CD_STRIPE // 16))
+    cases = {
+        "gf_lrc_encode": (lambda: rs.gf_matmul(lrc.matrix, data),
+                          lambda: rs.gf_matmul_plain(lrc.matrix, data),
+                          gf_work(CD_LRC_B, m, k, su // 4)),
+        "crc_lrc_encode": (lambda: crc_ops.crc0_cells(data, parity),
+                           lambda: crc_ops.crc0_words_plain(
+                               torch.cat([data, parity], dim=1)),
+                           crc_work(CD_LRC_B * (k + m), su // 4)),
+        "gf_clay_round": (lambda: rs.gf_matmul(clay_rm, clay_x),
+                          lambda: rs.gf_matmul_plain(clay_rm, clay_x),
+                          gf_work(1, 2, 4, clay_x.shape[-1])),
+    }
+    for key, (kernel, plain, (nbytes, ops)) in cases.items():
+        err = max_abs_err(kernel(), plain())
+        check(err == 0, f"{key}: kernel and plain differ by {err}")
+        ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
+        b_ms, b_by = bound(nbytes, ops)
+        prof = profile_steps(kernel)
+        timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err,
+                      "device_ms": device_ms(prof)}
+        emit({"phase": "time", "what": key, **timed[key],
+              "share_of_bound": b_ms / ms,
+              "profile": {kk: prof[kk] for kk in PROFILE_CLOCK}})
+    del clay_x
+    emit({"phase": "codecs", "codec": "lrc", "stripes": CD_LRC_B, "k": k,
+          "m": m, "chunks": n, "cell_bytes": su, "lost_position": lost,
+          "read_positions": need, "launches": {"encode": enc, "decode": dec},
+          "exact": True})
+    del data, parity, crcs, full, surv, rebuilt
+    seconds["lrc"] = time.perf_counter() - t0
+
+    # ---- the ECBatcher at the OSD's 4 KiB cells
+    t0 = time.perf_counter()
+    conf = config.proxy()
+    conf.apply({"osd_ec_batch_target_stripes": ECB_TARGET,
+                "osd_ec_batch_window": ECB_WINDOW,
+                "osd_ec_cold_shape_bytes": CD_ECB_COLD_BYTES})
+    perf = PerfCounters("osd.0")
+    ECBatcher.declare_counters(perf)
+    state = {"inflight": 0}
+    batcher = ECBatcher(perf, conf=conf,
+                        idle_probe=lambda: state["inflight"]
+                        <= batcher.parked())
+    ecb = {}
+
+    def mix(name, codec, submit, stripes_each, data_bytes):
+        n_sub, _, conc = CD_ECB_MIXES[name]
+        before = perf.dump()
+        (results, lat, wall), counts = counted(
+            lambda: drive(submit, n_sub, conc, state))
+        d = counter_delta(perf.dump(), before)
+        check(d["ec_batch_failures"] == 0, f"{name}: a batch failed")
+        ecb[name] = {"phase": "codecs_ecbatch", "mix": name,
+                     "submissions": n_sub, "stripes_per_submission":
+                     stripes_each, "concurrency": conc,
+                     "stripe_unit": codec_su[name], "wall_s": wall,
+                     "stripes_per_s": n_sub * stripes_each / wall,
+                     "data_GiB_per_s": data_bytes / wall / 2**30,
+                     "lat_p50_ms": float(np.percentile(lat, 50) * 1e3),
+                     "lat_p99_ms": float(np.percentile(lat, 99) * 1e3),
+                     "ec_decode_cold_host": d["ec_decode_cold_host"],
+                     "decode_batches": d["ec_decode_stripes"]["count"],
+                     "encode_batches": d["ec_batch_stripes"]["count"],
+                     "launches": counts}
+        return results
+
+    codec_su = {}
+    clay = load_codec(CD_CLAY_PROFILE, device=dev)
+    su = effective_stripe_unit(clay, ECB_SU)
+    codec_su["clay_recovery"] = su
+    n_sub, per, _ = CD_ECB_MIXES["clay_recovery"]
+    cdata = random_bytes(rng, (n_sub * per, clay.k, su))
+    every = np.concatenate([cdata, clay.encode_cells_host(cdata)], axis=1)
+    order, slices = repair_slices(clay, every, CD_ECB_REPAIR)
+    slices = slices.reshape(n_sub, per, *slices.shape[1:])
+
+    def warm_clay():
+        """Rebuilds until the batcher's cold-shape shield has promoted
+        the pattern (CD_ECB_COLD_BYTES of it on the host engine, then
+        its background warm on the card), so that the timed mix runs
+        every round on the card -> (submissions, seconds)."""
+        t_warm, n = time.perf_counter(), 0
+        while not batcher._shape_warm:
+            check(n < n_sub, "clay_recovery: the shield never promoted")
+            got = asyncio.run(batcher.repair_cells(
+                clay, order, (CD_ECB_REPAIR,), slices[n]))
+            check(np.array_equal(got[:, 0], every[n * per:(n + 1) * per,
+                                                  CD_ECB_REPAIR]),
+                  f"clay_recovery warm-up {n} vs the original cells")
+            n += 1
+        while not all(batcher._shape_warm.values()):
+            check(time.perf_counter() - t_warm < 120,
+                  "clay_recovery: the pattern's warm did not end")
+            time.sleep(0.01)
+        return n, time.perf_counter() - t_warm
+
+    before = perf.dump()
+    (n_warm, warm_s), warm_counts = counted(warm_clay)
+    d = counter_delta(perf.dump(), before)
+    emit({"phase": "codecs_ecbatch_warmup", "mix": "clay_recovery",
+          "submissions": n_warm, "stripes_per_submission": per,
+          "seconds": warm_s,
+          "host_rounds": d["ec_decode_cold_host"],
+          "device_rounds": d["ec_decode_stripes"]["count"]
+          - d["ec_decode_cold_host"],
+          "warm_s": list(batcher.warm_seconds.values()),
+          "launches": warm_counts})
+    out = mix("clay_recovery", clay, lambda i: batcher.repair_cells(
+        clay, order, (CD_ECB_REPAIR,), slices[i]), per,
+        n_sub * per * clay.k * su)
+    for i in range(n_sub):
+        check(np.array_equal(out[i], clay.repair_cells_host(
+            order, (CD_ECB_REPAIR,), slices[i])),
+            f"clay_recovery {i} vs repair_cells_host")
+        check(np.array_equal(out[i][:, 0], every[i * per:(i + 1) * per,
+                                                 CD_ECB_REPAIR]),
+              f"clay_recovery {i} vs the original cells")
+    rec = ecb["clay_recovery"]
+    rec["device_rounds"] = rec["decode_batches"] - rec["ec_decode_cold_host"]
+    rec["device_share"] = rec["device_rounds"] / rec["decode_batches"]
+    check(rec["ec_decode_cold_host"] == 0
+          and rec["launches"]["gf_matmul"] > 0,
+          f"clay_recovery: {rec['ec_decode_cold_host']} of "
+          f"{rec['decode_batches']} rounds on the host engine, launches "
+          f"{rec['launches']}")
+    emit(rec)
+    del cdata, every, slices, out
+
+    bm = load_codec(CD_BM_PROFILE, device=dev)
+    su = effective_stripe_unit(bm, ECB_SU)
+    codec_su["liber8tion_write"] = su
+    n_sub, per, _ = CD_ECB_MIXES["liber8tion_write"]
+    wdata = random_bytes(rng, (n_sub, bm.k, per, su))
+    out = mix("liber8tion_write", bm, lambda i: batcher.encode_cells(
+        bm, wdata[i].transpose(1, 0, 2)), per, wdata.nbytes)
+    for i in range(n_sub):
+        cells = wdata[i].transpose(1, 0, 2)
+        par, crc = out[i]
+        check(np.array_equal(par, bm.encode_cells_host(cells)),
+              f"liber8tion_write {i} parity vs the host engine")
+        check(np.array_equal(crc, host_crcs(np.concatenate([cells, par],
+                                                           axis=1))),
+              f"liber8tion_write {i} CRCs vs the C++ core")
+    wr = ecb["liber8tion_write"]
+    check(wr["launches"]["gf2_xor"] > 0 and wr["launches"]["crc32c"] > 0,
+          f"liber8tion_write launches {wr['launches']}")
+    emit(wr)
+    seconds["ecbatch"] = time.perf_counter() - t0
+    emit({"phase": "codecs_seconds", **seconds})
+    for key in ("gf2_xor", "gf_matmul", "crc32c"):
+        check(launches[key] > 0, f"the codec paths launched {key} "
+                                 f"{launches[key]} times")
+    return {"launches": launches, "edge_err": edge_err, "timed": timed,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1651,6 +2141,13 @@ def main() -> int:
                               f"{st['launches']} times")
     timed.update(st["timed"])
     seconds["store"] = time.perf_counter() - t0
+
+    # ---- phase 10: the other codec families (bitmatrix through K5, Clay
+    # and LRC through K1 and K2, the ECBatcher's sub-chunk repair)
+    t0 = time.perf_counter()
+    cd = codecs_phase(dev, rng)
+    timed.update(cd["timed"])
+    seconds["codecs"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -1658,7 +2155,7 @@ def main() -> int:
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
                                      ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "device_ms", "copy_bound_ms", "draws",
-                                      "group", "max_abs_err",
+                                      "group", "step_ms", "max_abs_err",
                                       "head_max_abs_err")
                                      if f in timed[k]}
                 for k in keys}
@@ -1667,6 +2164,7 @@ def main() -> int:
         paths = {"main_path": launches[name], "ecbatch": ecb["launches"][name]}
         if name == "crc32c":
             paths["store"] = st["launches"]
+        paths["codecs"] = cd["launches"][name]
         return paths
 
     table = [
@@ -1677,10 +2175,13 @@ def main() -> int:
          "max_abs_err": max(errs["gf_matmul"], timed["gf_write"]["max_abs_err"],
                             timed["gf_repair"]["max_abs_err"],
                             timed["gf_batch_write"]["max_abs_err"],
-                            timed["gf_batch_decode"]["max_abs_err"]),
+                            timed["gf_batch_decode"]["max_abs_err"],
+                            timed["gf_lrc_encode"]["max_abs_err"],
+                            timed["gf_clay_round"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("gf_matmul"),
          "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
-                          "gf_batch_decode")},
+                          "gf_batch_decode", "gf_lrc_encode",
+                          "gf_clay_round")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:231",
@@ -1689,11 +2190,12 @@ def main() -> int:
                             timed["crc_repair"]["max_abs_err"],
                             timed["crc_checksummer"]["max_abs_err"],
                             timed["crc_batch_write"]["max_abs_err"],
+                            timed["crc_lrc_encode"]["max_abs_err"],
                             *(timed[f"crc_store_{k}"]["max_abs_err"]
                               for k in ST_SHAPES)),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
-                          "crc_batch_write",
+                          "crc_batch_write", "crc_lrc_encode",
                           *(f"crc_store_{k}" for k in ST_SHAPES))},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",
@@ -1722,6 +2224,16 @@ def main() -> int:
          "launches_by_path": {"placement": pl["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
                             for s in ("full", "65536", "64")))},
+        {"name": "gf2_xor", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/gf2_xor.cu",
+         "replaces": "ceph_tpu/ops/gf2.py:62",
+         "launches": cd["launches"]["gf2_xor"], **timed["gf2_encode"],
+         "max_abs_err": max(cd["edge_err"],
+                            timed["gf2_encode"]["max_abs_err"],
+                            timed["gf2_decode"]["max_abs_err"]),
+         "library_ms": None,
+         "launches_by_path": {"codecs": cd["launches"]["gf2_xor"]},
+         "shapes": shapes("gf2_encode", "gf2_decode")},
     ]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,7 @@ from ceph_tpu_torch import kernels
 from ceph_tpu_torch.convert import batch_to_device, batch_to_numpy
 from ceph_tpu_torch.ops import crc32c as crc
 from ceph_tpu_torch.ops import rs
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The emulations are small tensor ops: one intra-op thread each keeps the
 # parallel test workers from spinning every core.

@@ -9,6 +9,7 @@ import pytest
 from ceph_tpu.utils import buffer as jbuffer
 from ceph_tpu_torch.store import transaction as tx
 from ceph_tpu_torch.utils.buffer import STATS, BufferList, as_segments, as_view
+from test_torch_native import jax_native_whole  # noqa: F401
 
 
 def test_append_is_zero_copy_and_len_tracks():

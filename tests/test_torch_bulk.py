@@ -20,6 +20,7 @@ from ceph_tpu_torch.ops import crush
 from ceph_tpu_torch.placement import bulk
 from ceph_tpu_torch.placement import crushmap as cm
 from ceph_tpu_torch.placement import encoding as penc
+from test_torch_native import jax_native_whole  # noqa: F401
 
 torch.set_num_threads(1)
 

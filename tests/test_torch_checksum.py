@@ -12,6 +12,7 @@ import torch
 from ceph_tpu.checksum import Checksummer as JChecksummer
 from ceph_tpu_torch.checksum import ALGORITHMS, Checksummer, csum_value_size
 from ceph_tpu_torch.ops import crc32c as crc_ops
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.

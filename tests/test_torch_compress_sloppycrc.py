@@ -13,6 +13,7 @@ from ceph_tpu_torch.store import Transaction
 from ceph_tpu_torch.store.walstore import WalStore
 from ceph_tpu_torch.utils import compress as C
 from ceph_tpu_torch.utils.sloppy_crc import SloppyCRCMap
+from test_torch_native import jax_native_whole  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["zlib", "bz2", "lzma"])

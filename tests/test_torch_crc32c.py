@@ -10,6 +10,7 @@ from ceph_tpu.ops import crc32c as jcrc
 from ceph_tpu_torch import kernels
 from ceph_tpu_torch.convert import batch_to_device, batch_to_numpy
 from ceph_tpu_torch.ops import crc32c as crc
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.

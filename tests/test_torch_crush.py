@@ -11,6 +11,7 @@ from ceph_tpu.ops import crush as jcrush
 from ceph_tpu_torch import native as nt
 from ceph_tpu_torch.native import gen_tables
 from ceph_tpu_torch.ops import crush
+from test_torch_native import jax_native_whole  # noqa: F401
 
 torch.set_num_threads(1)
 

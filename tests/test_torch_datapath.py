@@ -9,6 +9,7 @@ import torch
 from ceph_tpu.models import datapath as jdp
 from ceph_tpu_torch import convert
 from ceph_tpu_torch.models import datapath
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.

@@ -13,6 +13,7 @@ import torch
 from ceph_tpu.ec import load_codec as jload_codec
 from ceph_tpu_torch.convert import batch_to_device, batch_to_numpy
 from ceph_tpu_torch.ec import ECError, load_codec
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.
@@ -130,9 +131,11 @@ def test_batched_api_matches_jax():
 
 
 @pytest.mark.parametrize("profile,match", [
-    ({"plugin": "rs_tpu", "technique": "liber8tion"}, "not yet ported"),
-    ({"plugin": "rs_tpu", "technique": "liberation"}, "not yet ported"),
-    ({"plugin": "rs_tpu", "technique": "blaum_roth"}, "not yet ported"),
+    # the bit-matrix techniques hand over to the bitmatrix codec, which
+    # refuses the geometries its constructions do not cover
+    ({"plugin": "rs_tpu", "technique": "liber8tion", "m": "3"}, "RAID6"),
+    ({"plugin": "rs_tpu", "technique": "liberation", "w": "6"}, "prime w"),
+    ({"plugin": "rs_tpu", "technique": "blaum_roth", "w": "5"}, "w\\+1 prime"),
     ({"plugin": "rs_tpu", "technique": "nope"}, "not supported"),
     ({"plugin": "rs_tpu", "k": "200", "m": "60"}, "k\\+m"),
     ({"plugin": "rs_tpu", "w": "16"}, "w=8"),
@@ -147,6 +150,7 @@ def test_profiles_refused(profile, match):
 def test_unknown_plugin_and_registry_names():
     from ceph_tpu_torch.ec import instance
 
-    assert {"rs_tpu", "jerasure", "isa", "isa_tpu"} <= set(instance().names())
+    assert {"rs_tpu", "jerasure", "isa", "isa_tpu", "bitmatrix", "clay",
+            "lrc", "shec"} <= set(instance().names())
     with pytest.raises(KeyError):
-        load_codec({"plugin": "clay"}, device="cpu")
+        load_codec({"plugin": "nope"}, device="cpu")

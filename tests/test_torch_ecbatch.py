@@ -27,6 +27,7 @@ from ceph_tpu_torch.ops import gf8
 from ceph_tpu_torch.utils import config as cfg
 from ceph_tpu_torch.utils.fault import FaultInjector, InjectedError
 from ceph_tpu_torch.utils.perf import PerfCounters
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.
@@ -485,8 +486,9 @@ def test_overdecompose_decode_parity_random_draws(backend):
 
 
 def test_repair_cells_has_no_batched_subchunk_repair_yet():
-    """No codec of the port has a batched sub-chunk repair (Clay is not
-    ported): the dispatch fails closed with the reference's error."""
+    """An rs codec has no batched sub-chunk repair (only Clay, a
+    regenerating code, has one: ``test_repair_cells_rebuilds_a_clay_cell``):
+    the dispatch fails closed with the reference's error."""
     codec = codec_for()
     perf = make_perf()
 
@@ -499,6 +501,35 @@ def test_repair_cells_has_no_batched_subchunk_repair_yet():
     assert perf.dump()["ec_batch_failures_dispatch"] == 1
     with pytest.raises(RuntimeError, match="no batched sub-chunk repair"):
         ECBatcher()._repair_sync(codec, (1, 2), (0,), rand_cells(2, 2, 64))
+
+
+def test_repair_cells_rebuilds_a_clay_cell():
+    """Clay's batched sub-chunk repair through repair_cells: d helpers'
+    repair planes (1/q of each cell) rebuild the lost cell byte for
+    byte, counted as a decode batch."""
+    codec = codec_for({"plugin": "clay", "k": "4", "m": "2", "d": "5"})
+    su = codec.get_chunk_size(4 * 1024)
+    cells = rand_cells(3, 4, su, seed=7)
+    every = np.concatenate([cells, np.stack(
+        [codec.encode_chunks(c) for c in cells])], axis=1)
+    lost = 3
+    plan = codec.minimum_to_decode([lost], [i for i in range(6) if i != lost])
+    order = sorted(plan)
+    sub = su // codec.get_sub_chunk_count()
+    slices = np.stack([np.concatenate(
+        [every[:, c, o * sub:(o + n) * sub] for o, n in plan[c]], axis=1)
+        for c in order], axis=1)
+    assert slices.shape == (3, codec.d, su // codec.q)
+    perf = make_perf()
+
+    async def t():
+        b = ECBatcher(perf)
+        got = await b.repair_cells(codec, tuple(order), (lost,), slices)
+        assert np.array_equal(got[:, 0], every[:, lost])
+
+    run(t())
+    d = perf.dump()
+    assert d["ec_decode_batches"] == 1 and d["ec_batch_failures"] == 0
 
 
 class _EngineProbe:

@@ -6,6 +6,7 @@ import torch
 
 from ceph_tpu.ops import gf8 as jgf8
 from ceph_tpu_torch.ops import gf8
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.

@@ -497,3 +497,112 @@ def test_store_with_device_checksums_equals_its_host_twin(cuda, kind,
         assert kernels.CRC32C.launches == before + 2
         assert all(s.read("1.0", oid) == want[oid] for oid in objs)
         s.umount()
+
+
+# ------------------------------------------- the GF(2) XOR kernel (K5)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.gf2_edge_cases()))
+def test_gf2_xor_kernel_at_the_edges(cuda, case):
+    from ceph_tpu_torch.ops import gf2
+
+    plan, shape = chip_smoke.gf2_edge_cases()[case]
+    rows = _words(np.random.default_rng(sum(map(ord, case))), shape, cuda)
+    before = kernels.GF2_XOR.launches
+    got = gf2.gf2_apply(plan, rows)
+    assert kernels.GF2_XOR.launches == before + 1
+    assert torch.equal(got, gf2.gf2_apply_plain(plan, rows))
+    assert torch.equal(got.cpu(), gf2.gf2_apply_plain(plan, rows.cpu()))
+
+
+def test_gf2_plan_cache_is_built_once_per_plan_and_device(cuda):
+    from ceph_tpu_torch.ops import gf2
+
+    gf2._device_plan.cache_clear()
+    rows = _words(np.random.default_rng(1), (2, 6, 64), cuda)
+    plan = np.array([[0, 1, 6], [2, 3, 4]], np.int32)
+    first = gf2.gf2_apply(plan, rows)
+    again = gf2.gf2_apply(plan.copy(), rows[:1])  # the same plan's bytes
+    info = gf2._device_plan.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
+    assert torch.equal(again, first[:1])
+    gf2.gf2_apply(plan[::-1].copy(), rows)  # another plan: built once more
+    assert gf2._device_plan.cache_info().misses == 2
+    cached = gf2._device_plan(plan.tobytes(), 2, 3, str(rows.device))
+    assert cached.device == rows.device and cached.dtype == torch.int32
+
+
+def test_gf2_xor_wrapper_refuses_bad_inputs(cuda):
+    rows = torch.zeros((2, 3, 8), dtype=torch.int32, device=cuda)
+    plan = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    assert kernels.gf2_xor(rows, plan).shape == (2, 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gf2_xor(rows.transpose(1, 2), plan)
+    with pytest.raises(TypeError):
+        kernels.gf2_xor(rows, plan.to(torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gf2_xor(rows, plan.cpu())
+    with pytest.raises(ValueError, match="at most"):
+        kernels.gf2_xor(torch.zeros((1, kernels.GF2_MAX_ROWS + 1, 1),
+                                    dtype=torch.int32, device=cuda), plan)
+
+
+@pytest.mark.parametrize("profile", [
+    {"plugin": "jerasure", "technique": "liber8tion", "k": "8", "m": "2"},
+    {"plugin": "bitmatrix", "technique": "cauchy_bm", "k": "6", "m": "3"},
+    {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+    {"plugin": "clay", "k": "4", "m": "2", "d": "5"}],
+    ids=lambda p: p.get("technique", p["plugin"]))
+def test_codec_batches_on_the_card_equal_the_cpu_codec(cuda, profile):
+    card, cpu = load_codec(profile, device=cuda), load_codec(profile,
+                                                             device="cpu")
+    su = card.get_chunk_size(card.k * 4096)
+    cells = np.random.default_rng(3).integers(0, 256, (5, card.k, su),
+                                              dtype=np.uint8)
+    x = rs.pack_u32(cells)
+    k0 = {k.name: k.launches for k in kernels.KERNELS}
+    parity, crcs = card.encode_crc_batch(words_to_tensor(x, cuda), su)
+    cparity, ccrcs = cpu.encode_crc_batch(x, su)
+    assert parity.device.type == "cuda" and crcs.device.type == "cuda"
+    assert torch.equal(parity.cpu(), cparity) and torch.equal(crcs.cpu(),
+                                                              ccrcs)
+    assert kernels.CRC32C.launches > k0["crc32c"]
+    used = "gf2_xor" if profile["plugin"] in ("jerasure", "bitmatrix") \
+        else "gf_matmul"
+    assert {k.name: k.launches for k in kernels.KERNELS}[used] > k0[used]
+    every = np.concatenate([cells, rs.unpack_u32(cparity.numpy().view(
+        np.uint32))], axis=1)
+    present = tuple(range(1, card.k + card.m))  # generator rows
+    if profile["plugin"] != "clay":
+        present = present[:card.k]
+    surv = words_to_tensor(rs.pack_u32(np.ascontiguousarray(
+        every[:, list(present)])), cuda)
+    got = card.decode_batch(present, surv, want=(0,))
+    assert torch.equal(got.cpu(), cpu.decode_batch(present, surv.cpu(),
+                                                   want=(0,)))
+    assert np.array_equal(rs.unpack_u32(got.cpu().numpy().view(np.uint32)),
+                          cells[:, :1])
+
+
+def test_batcher_repairs_a_clay_cell_on_the_card(cuda):
+    conf = chip_smoke_conf(osd_ec_cold_shape_bytes=0)
+    codec = load_codec({"plugin": "clay", "k": "4", "m": "2", "d": "5"},
+                       device=cuda)
+    cells = np.random.default_rng(9).integers(0, 256, (300, 4, 4096),
+                                              dtype=np.uint8)
+    every = np.concatenate([cells, codec.encode_cells_host(cells)], axis=1)
+    order, slices = chip_smoke.repair_slices(codec, every, 5)
+    before = kernels.GF_MATMUL.launches
+    got = asyncio.run(ECBatcher(conf=conf).repair_cells(codec, order, (5,),
+                                                        slices))
+    assert kernels.GF_MATMUL.launches > before
+    assert np.array_equal(got, codec.repair_cells_host(order, (5,), slices))
+    assert np.array_equal(got[:, 0], every[:, 5])
+
+
+def chip_smoke_conf(**knobs):
+    from ceph_tpu_torch.utils import config
+
+    conf = config.proxy()
+    conf.apply(knobs)
+    return conf

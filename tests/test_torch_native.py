@@ -1,7 +1,13 @@
 """The port's C++ host core (``ceph_tpu_torch.native``) against the JAX
 package's (``ceph_tpu.native``): every entry point on the same
-numpy-seeded inputs. Tolerance: exact equality (integer results)."""
+numpy-seeded inputs. Tolerance: exact equality (integer results).
+
+``jax_library`` / ``jax_native_whole`` load the JAX package's library for
+every port test file that runs that package's host code beside the
+port's."""
+import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -10,6 +16,78 @@ from ceph_tpu import native as jnt
 from ceph_tpu_torch import native as nt
 
 ROOT_NATIVE = "ceph_tpu/native"
+
+
+#: What dlopen says of a shared library whose linker is still writing it.
+PARTIAL_LIBRARY = ("file too short", "ELF load command", "cannot read file data")
+
+
+def jax_library(deadline_s: float = 120.0):
+    """``ceph_tpu.native.lib()``, loaded once the library file is whole.
+    The JAX package builds libceph_tpu_native.so at first use with make,
+    in place and with no lock, so under parallel test workers one
+    worker's dlopen can meet the file while another worker's linker is
+    still writing it ("file too short"). Wait for that writer instead of
+    failing whichever test first needs the library; any other load error
+    (a library that is whole but broken) raises at once."""
+    t_end = time.monotonic() + deadline_s
+    while True:
+        try:
+            return jnt.lib()
+        except OSError as e:
+            if (not any(m in str(e) for m in PARTIAL_LIBRARY)
+                    or time.monotonic() > t_end):
+                raise
+            time.sleep(0.25)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_whole():
+    """Load the JAX package's C++ core (``jax_library``) before a
+    module's tests run it; a module imports this fixture to use it."""
+    jax_library()
+
+
+def test_jax_library_waits_for_a_build_in_progress(tmp_path, monkeypatch):
+    """The race of the JAX package's in-place build: the library file is
+    cut short when the first load meets it, and whole a moment later."""
+    whole = jnt._SO.read_bytes()
+    path = tmp_path / "libceph_tpu_native.so"
+    path.write_bytes(whole[:16])
+    monkeypatch.setattr(jnt, "_SO", path)
+    monkeypatch.setattr(jnt, "_build", lambda: None)
+    monkeypatch.setattr(jnt, "_lib", None)
+    with pytest.raises(OSError, match="too short"):
+        jnt.lib()
+
+    def finish():
+        time.sleep(0.5)
+        with open(path, "wb") as f:
+            f.write(whole)
+            f.flush()
+            os.fsync(f.fileno())
+
+    writer = threading.Thread(target=finish)
+    writer.start()
+    try:
+        lib = jax_library(deadline_s=30)
+    finally:
+        writer.join()
+    assert lib._name == str(path)
+    assert lib.ct_gf_mul(3, 7) == nt.gf_mul(3, 7)
+
+
+def test_jax_library_fails_at_once_on_a_load_error_of_another_kind(
+        tmp_path, monkeypatch):
+    """A library that no build is writing (here: none at all) raises on
+    the first load instead of waiting out the deadline."""
+    monkeypatch.setattr(jnt, "_SO", tmp_path / "libceph_tpu_native.so")
+    monkeypatch.setattr(jnt, "_build", lambda: None)
+    monkeypatch.setattr(jnt, "_lib", None)
+    t0 = time.monotonic()
+    with pytest.raises(OSError, match="No such file"):
+        jax_library(deadline_s=30)
+    assert time.monotonic() - t0 < 5
 
 
 def test_library_is_the_ports_own_build():

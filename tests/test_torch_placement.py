@@ -16,6 +16,7 @@ from ceph_tpu_torch import convert
 from ceph_tpu_torch.placement import compiler, encoding
 from ceph_tpu_torch.placement import crushmap as cm
 from ceph_tpu_torch.placement import osdmap, tester
+from test_torch_native import jax_native_whole  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -20,6 +20,7 @@ from ceph_tpu_torch import convert
 from ceph_tpu_torch.placement import osdmap as posd
 from ceph_tpu_torch.placement import resolver as pres
 from ceph_tpu_torch.utils import config as pcfg
+from test_torch_native import jax_native_whole  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -9,6 +9,7 @@ import pytest
 
 from ceph_tpu.native import rt as jrt
 from ceph_tpu_torch.native import rt
+from test_torch_native import jax_native_whole  # noqa: F401
 
 RTS = {"torch": rt, "jax": jrt}
 

@@ -42,6 +42,7 @@ from ceph_tpu_torch.ops import crc32c as crc_ops
 from ceph_tpu_torch.store import bluestore, memstore, walstore
 from ceph_tpu_torch.store import transaction as tx
 from ceph_tpu_torch.utils import denc
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.
@@ -146,12 +147,29 @@ def fingerprint(s) -> dict:
     return out
 
 
+def differing(got, want, path=()) -> list:
+    """Where two results differ: the key paths (fingerprint keys such as
+    ``dump``, ``commits``, ``wal``, list positions) down to the first
+    values that are not dicts, lists or tuples of one length."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        keys = sorted(set(got) | set(want), key=repr)
+        return [p for k in keys
+                for p in (differing(got[k], want[k], path + (k,))
+                          if k in got and k in want else [path + (k,)])]
+    if (isinstance(got, (list, tuple)) and isinstance(want, (list, tuple))
+            and len(got) == len(want)):
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in differing(g, w, path + (i,))]
+    return [] if got == want else [path]
+
+
 def twins(body, tmp_path, *args):
     """Run ``body(P, path, *args)`` for the port and for the JAX package,
-    each in a directory of its own; the results must be equal."""
+    each in a directory of its own; the results must be equal (a failure
+    names the keys that differ)."""
     got = body(TORCH, tmp_path / "torch", *args)
     want = body(JAX, tmp_path / "jax", *args)
-    assert got == want
+    assert got == want, f"port and JAX differ at {differing(got, want)}"
     return got
 
 

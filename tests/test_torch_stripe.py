@@ -13,6 +13,7 @@ from ceph_tpu.cluster import stripe as jst
 from ceph_tpu.ec import load_codec as jload_codec
 from ceph_tpu_torch.cluster import stripe as st
 from ceph_tpu_torch.ec import load_codec
+from test_torch_native import jax_native_whole  # noqa: F401
 
 # The plain versions are small tensor ops: one intra-op thread each keeps
 # the parallel test workers from spinning every core.

@@ -13,6 +13,7 @@ from ceph_tpu.utils import perf as jperf
 from ceph_tpu_torch.utils import config as cfg
 from ceph_tpu_torch.utils import fault
 from ceph_tpu_torch.utils import perf
+from test_torch_native import jax_native_whole  # noqa: F401
 
 FIELDS = ("name", "type", "default", "min", "max", "enum", "runtime")
 
