@@ -16,7 +16,11 @@ reference so each module's counterpart is easy to find:
                 bitmatrix, clay, lrc, shec
   checksum/     the BlueStore Checksummer (crc32c family, xxhash): the
                 C++ core by default, the crc32c kernel with device=True
-  cluster/      the OSD's ECBatcher and stripe layout
+  cluster/      the OSD's ECBatcher and stripe layout, every cluster
+                message, snaps, the fault plane, and the tier's leaves
+                (scheduler, reserver, optracker, hedge, pglog)
+  msg/          the wire: CRC-framed messages, auth, LocalBus, TCP and
+                shared-memory messengers, NetBus
   placement/    CRUSH maps and host rule engine, the bulk rule engine,
                 OSDMap, map encoding, crushtool compiler, tester, and the
                 batched placement resolver
@@ -24,7 +28,8 @@ reference so each module's counterpart is easy to find:
                 checkpoint snapshots) and BlueStoreLite (block device +
                 KV metadata), both checksumming through the Checksummer
   utils/        config schema, perf counters, fault injection, denc,
-                BufferList, compressors, SloppyCRCMap
+                BufferList, compressors, SloppyCRCMap, latency
+                histograms, log, tracing, the admin socket
   native/       the C++ host core and ``rt`` (KV store, block device,
                 bitmap allocator): g++ at first use, ctypes
   convert.py    hands the reference's state (matrix, stripe data, CRUSH

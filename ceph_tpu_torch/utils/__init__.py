@@ -10,4 +10,6 @@ package's ``ceph_tpu/utils``, copied as the port reaches them):
 - ``buffer`` — BufferList, zero-copy scatter/gather (the bufferlist role).
 - ``compress`` — compressor plugins and BlueStore's policy helpers.
 - ``sloppy_crc`` — opportunistic per-block CRC tracking (SloppyCRCMap).
+- ``lathist``, ``log``, ``trace``, ``admin`` — mergeable latency
+  histograms, the dout log, span tracing and the admin socket.
 """

@@ -81,6 +81,21 @@ with the repair's helper bytes beside an RS decode's; LRC k=4, m=2, l=3 at
 against ``repair_cells_host``) and 64 liber8tion writes of 128 stripes
 (exact against the host engine and the C++ core's CRC32C).
 
+Phase ``msg`` drives the cluster wire with an EC pool's traffic: one
+ECBatcher at the OSD's defaults over jerasure reed_sol_van k=8, m=3 on the
+card encodes 256 objects of 4 MiB (K1 parity, K2 cell CRCs); for each the
+primary sends every shard's cells in an MECSubWrite (a store Transaction
+and the LE (cell, crc) patch) to its own receiver, which applies it to a
+MemStore, recomputes every cell's CRC32C on the C++ core against the patch
+and replies; then it reads every object back from the 9 shards other than
+1 and 6 and rebuilds those two through the batcher (K1), exact against the
+written bytes and CRCs. The traffic runs over LocalBus (by reference), TCP
+on 127.0.0.1 (half the objects), TCP with signed frames (half) and the
+shared-memory ring messenger; each prints its sub-ops, wire bytes, GiB/s,
+sub-op round trips, frames per drain, kernel launches and the card's busy
+share under torch.profiler. Secure mode is left out: it needs the
+``cryptography`` package.
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -205,6 +220,27 @@ CD_ECB_REPAIR = 2
 #: on the host engine. A warm-up crosses it before the timed mix.
 CD_ECB_COLD_BYTES = 8 << 20
 
+#: The msg phase: the cluster wire carrying an EC pool's fan-out. One
+#: ECBatcher at the OSD's defaults (ECB_SU cells, target ECB_TARGET, window
+#: ECB_WINDOW) over jerasure reed_sol_van k=8, m=3 encodes objects of RBD's
+#: default 4 MiB (128 stripes each), MSG_CONCURRENCY at a time; the primary
+#: ships each shard's cells and (cell, crc) patch to its own receiver in an
+#: MECSubWrite, then reads every object back from the 9 shards other than
+#: MSG_LOST and rebuilds those two from MSG_PRESENT. Objects per transport:
+#: MSG_OBJECTS (1 GiB), cut to half on the two TCP transports, which take
+#: ~13 and ~18 s at the full count on the H100's host; secure mode needs the
+#: ``cryptography`` package.
+MSG_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
+               "k": "8", "m": "3"}
+MSG_OBJECT_BYTES, MSG_OBJECTS = 4 << 20, 256
+MSG_TRANSPORTS = {"localbus": MSG_OBJECTS, "tcp": MSG_OBJECTS // 2,
+                  "tcp_sign": MSG_OBJECTS // 2, "shm": MSG_OBJECTS}
+MSG_CONCURRENCY = 16
+MSG_LOST, MSG_PRESENT = (1, 6), PRESENT
+MSG_PGID, MSG_EPOCH = (2, 0x1F), 1
+#: Seconds a sub-op may wait for its reply before the phase fails.
+MSG_TIMEOUT_S = 60.0
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -253,10 +289,11 @@ def time_once(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
-def profiled(run) -> tuple[list, dict]:
+def profiled(run, pads=PROFILE_PADS_S) -> tuple[list, dict]:
     """Run ``run()`` under torch.profiler with the capture window padded
-    (PROFILE_PADS_S) until the trace holds one device record per kernel
-    launch the host made, else keep the trace that held most -> (its
+    (``pads``, seconds tried in turn) until the trace holds one device
+    record per kernel launch the host made, else keep the trace that held
+    most -> (its
     device events, {launches, kernel records caught, the pad, the kernel
     records caught at each pad tried, the first device record's start
     minus the first launch call's start in ms: under a millisecond when
@@ -265,7 +302,7 @@ def profiled(run) -> tuple[list, dict]:
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     caught, best = [], None
-    for pad in PROFILE_PADS_S:
+    for pad in pads:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
@@ -383,13 +420,13 @@ def span_union(spans) -> float:
     return total
 
 
-def profile_split(run) -> dict:
-    """Run ``run()`` once under torch.profiler (``profiled``): device ms
+def profile_split(run, pads=PROFILE_PADS_S) -> dict:
+    """Run ``run()`` under torch.profiler (``profiled``): device ms
     of host-to-device copies, kernels and device-to-host copies, and the
     idle share of the window from the first to the last device event
     (the union of every stream's events is the busy time), over the
     records caught."""
-    events, clock = profiled(run)
+    events, clock = profiled(run, pads)
     split = {"htod_ms": 0.0, "kernels_ms": 0.0, "dtoh_ms": 0.0,
              "other_ms": 0.0}
     spans = []
@@ -408,11 +445,11 @@ def profile_split(run) -> dict:
             **clock, "idle_share": 1 - span_union(spans) / window, **split}
 
 
-def drive(submit, n: int, concurrency: int, state: dict):
+async def drive_async(submit, n: int, concurrency: int, state: dict):
     """``n`` submissions ``submit(i)`` from ``concurrency`` concurrent
-    submitters on one event loop -> (results, per-submission seconds,
-    wall seconds). ``state["inflight"]`` counts submissions in flight
-    (what the OSD's op tracker counts for its idle probe)."""
+    submitters on the running event loop -> (results, per-submission
+    seconds, wall seconds). ``state["inflight"]`` counts submissions in
+    flight (what the OSD's op tracker counts for its idle probe)."""
     results, lat = [None] * n, [0.0] * n
     order = iter(range(n))
 
@@ -426,12 +463,14 @@ def drive(submit, n: int, concurrency: int, state: dict):
                 state["inflight"] -= 1
             lat[i] = time.perf_counter() - t0
 
-    async def all_workers():
-        await asyncio.gather(*[worker() for _ in range(concurrency)])
-
     t0 = time.perf_counter()
-    asyncio.run(all_workers())
+    await asyncio.gather(*[worker() for _ in range(concurrency)])
     return results, lat, time.perf_counter() - t0
+
+
+def drive(submit, n: int, concurrency: int, state: dict):
+    """``drive_async`` on an event loop of its own."""
+    return asyncio.run(drive_async(submit, n, concurrency, state))
 
 
 def counter_delta(after: dict, before: dict) -> dict:
@@ -1892,6 +1931,466 @@ def codecs_phase(dev, rng) -> dict:
             "seconds": seconds}
 
 
+def msg_oid(i: int) -> bytes:
+    """The msg phase's object names: RBD data objects, one width for all
+    (every message of a kind then has one size)."""
+    return f"rbd_data.10226b8b4567.{i:016x}".encode()
+
+
+def msg_cid(shard: int) -> str:
+    """The shard collection of the phase's PG (the OSD's ``<pgid>s<shard>``)."""
+    return f"{MSG_PGID[0]}.{MSG_PGID[1]:x}s{shard}"
+
+
+def msg_sub_write(tid: int, shard: int, oid: bytes, rows: np.ndarray,
+                  crcs: np.ndarray):
+    """One shard's MECSubWrite as ``cluster/pg.py`` builds a full-object
+    write's: a Transaction that touches the object and writes the shard's
+    cells ``rows`` (T, su) from offset 0 as a view, and the LE (cell, crc)
+    u32 patch of every cell. No log entries ride along: the receivers run
+    no PG log."""
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.store.transaction import Transaction
+
+    cid = msg_cid(shard)
+    t = Transaction().touch(cid, oid).write(cid, oid, 0, rows)
+    patch = np.empty((len(crcs), 2), dtype="<u4")
+    patch[:, 0] = np.arange(len(crcs))
+    patch[:, 1] = crcs
+    return M.MECSubWrite(tid=tid, pgid=MSG_PGID, shard=shard, txn=t,
+                         entry=[], epoch=MSG_EPOCH,
+                         hpatch=memoryview(patch).toreadonly().cast("B"),
+                         ncells=len(crcs), size=MSG_OBJECT_BYTES)
+
+
+class MsgShard:
+    """One receiving OSD of the msg phase: a MemStore that holds its
+    shard's collection, and the shard side of an EC PG's sub-ops
+    (``cluster/pg.py`` handle_ec_write, handle_ec_read) cut to what the
+    phase holds: apply the transaction, recompute every received cell's
+    CRC32C on the C++ core and require the patch's, answer; serve reads
+    with their digest."""
+
+    def __init__(self, shard: int, su: int):
+        from ceph_tpu_torch.store.memstore import MemStore
+        from ceph_tpu_torch.store.transaction import Transaction
+
+        self.shard, self.su, self.cid = shard, su, msg_cid(shard)
+        self.store = MemStore()
+        self.store.queue_transaction(Transaction().create_collection(self.cid))
+        self.send = None  # (dst, msg) coroutine, set once the wire is up
+        self.cells_checked = 0
+        self.errors: list[str] = []
+
+    def _cells(self, t) -> np.ndarray:
+        """The cells a sub-write's transaction carries, as received (a
+        view over the staging rows on LocalBus, over the frame otherwise)."""
+        from ceph_tpu_torch.store import transaction as tx
+
+        return np.concatenate([
+            np.frombuffer(op.args["data"], np.uint8) for op in t.ops
+            if op.code == tx.OP_WRITE]).reshape(-1, self.su)
+
+    async def __call__(self, src: str, msg) -> None:
+        from ceph_tpu_torch import native
+        from ceph_tpu_torch.cluster import messages as M
+        from ceph_tpu_torch.store.transaction import Transaction
+
+        if isinstance(msg, M.MECSubWrite):
+            t = (msg.txn if isinstance(msg.txn, Transaction)
+                 else Transaction.decode(msg.txn)[0])
+            pairs = np.frombuffer(msg.hpatch, dtype="<u4").reshape(-1, 2)
+            cells = self._cells(t)
+            ok = (len(cells) == msg.ncells == len(pairs)
+                  and np.array_equal(pairs[:, 0], np.arange(len(pairs)))
+                  and np.array_equal(native.crc32c_batch(cells), pairs[:, 1]))
+            if ok:
+                self.store.queue_transaction(t)
+                self.cells_checked += len(cells)
+            else:
+                self.errors.append(f"osd.{self.shard}: tid {msg.tid} cells "
+                                   "disagree with their (cell, crc) patch")
+            await self.send(src, M.MECSubWriteReply(
+                tid=msg.tid, pgid=msg.pgid, shard=msg.shard,
+                result=M.OK if ok else M.EIO))
+        elif isinstance(msg, M.MECSubRead):
+            chunk = self.store.read(self.cid, msg.oid, msg.offset, msg.length)
+            await self.send(src, M.MECSubReadReply(
+                tid=msg.tid, pgid=msg.pgid, shard=msg.shard, result=M.OK,
+                data=chunk, digest=native.crc32c(chunk), size=len(chunk),
+                attrs={}, ver=(MSG_EPOCH, 0)))
+        else:
+            self.errors.append(f"osd.{self.shard}: unexpected {msg!r}")
+
+
+class MsgPrimary:
+    """The primary of the msg phase: encodes each object on the batcher
+    (K1 parity, K2 cell CRCs), fans its shards out as MECSubWrites and
+    gathers the replies; reads objects back from all shards but MSG_LOST
+    and rebuilds those through the batcher's decode (K1). Every reply
+    is matched to its sub-op by tid; ``write_rtt`` and ``read_rtt``
+    hold each sub-op's round trip, send to reply."""
+
+    def __init__(self, batcher, codec, su: int, data: np.ndarray):
+        from ceph_tpu_torch.utils.lathist import LatHist
+
+        self.batcher, self.codec, self.su, self.data = batcher, codec, su, data
+        self.k, self.n = codec.k, codec.k + codec.m
+        self.stripes = MSG_OBJECT_BYTES // (self.k * su)
+        self.crcs = np.zeros((len(data), self.n, self.stripes), np.uint32)
+        self.tids = itertools.count(1)
+        self.pending: dict[int, asyncio.Future] = {}
+        self.write_rtt, self.read_rtt = LatHist(), LatHist()
+        self.send = None  # (dst, msg) coroutine, set once the wire is up
+
+    async def __call__(self, src: str, msg) -> None:
+        fut = self.pending.pop(msg.tid, None)
+        if fut is not None and not fut.done():
+            fut.set_result(msg)
+
+    async def _call(self, dst: str, msg, hist):
+        fut = asyncio.get_running_loop().create_future()
+        self.pending[msg.tid] = fut
+        t0 = time.perf_counter()
+        await self.send(dst, msg)
+        reply = await asyncio.wait_for(fut, MSG_TIMEOUT_S)
+        hist.note_s(time.perf_counter() - t0)
+        return reply
+
+    async def write_object(self, i: int) -> None:
+        from ceph_tpu_torch.cluster import messages as M
+
+        k, t, su = self.k, self.stripes, self.su
+        staging = np.empty((self.n, t, su), np.uint8)   # shard-major rows
+        staging[:k] = self.data[i].reshape(t, k, su).transpose(1, 0, 2)
+        parity, crcs = await self.batcher.encode_cells(
+            self.codec, staging[:k].transpose(1, 0, 2))
+        check(crcs is not None, "the batcher returned no cell CRCs")
+        staging[k:] = parity.transpose(1, 0, 2)
+        self.crcs[i] = crcs.T
+        oid = msg_oid(i)
+        replies = await asyncio.gather(*(
+            self._call(f"osd.{g}", msg_sub_write(next(self.tids), g, oid,
+                                                 staging[g], self.crcs[i, g]),
+                       self.write_rtt) for g in range(self.n)))
+        for g, r in enumerate(replies):
+            check(isinstance(r, M.MECSubWriteReply) and r.result == M.OK
+                  and r.shard == g, f"object {i} shard {g}: {r!r}")
+
+    async def read_object(self, i: int) -> None:
+        from ceph_tpu_torch import native
+        from ceph_tpu_torch.cluster import messages as M
+
+        k, t, su = self.k, self.stripes, self.su
+        oid, reads = msg_oid(i), [g for g in range(self.n) if g not in MSG_LOST]
+        replies = await asyncio.gather(*(
+            self._call(f"osd.{g}", M.MECSubRead(
+                tid=next(self.tids), pgid=MSG_PGID, shard=g, oid=oid,
+                offset=0, length=-1), self.read_rtt) for g in reads))
+        cells = self.data[i].reshape(t, k, su)
+        got = {}
+        for g, r in zip(reads, replies):
+            check(isinstance(r, M.MECSubReadReply) and r.result == M.OK
+                  and r.shard == g and len(r.data) == t * su
+                  and r.digest == native.crc32c(r.data),
+                  f"object {i} read of shard {g}: {r!r}")
+            got[g] = np.frombuffer(r.data, np.uint8).reshape(t, su)
+            check(np.array_equal(native.crc32c_batch(got[g]), self.crcs[i, g]),
+                  f"object {i} shard {g}: cells read back vs their CRCs")
+            if g < k:
+                check(np.array_equal(got[g], cells[:, g]),
+                      f"object {i} shard {g}: bytes read back")
+        rebuilt = await self.batcher.decode_cells(
+            self.codec, MSG_PRESENT, MSG_LOST,
+            np.stack([got[g] for g in MSG_PRESENT], axis=1))
+        check(np.array_equal(rebuilt, cells[:, list(MSG_LOST)]),
+              f"object {i}: rebuilt shards {MSG_LOST} vs the written bytes")
+        check(np.array_equal(
+            native.crc32c_batch(rebuilt.transpose(1, 0, 2).reshape(-1, su)),
+            self.crcs[i, list(MSG_LOST)].reshape(-1)),
+            f"object {i}: rebuilt cells' CRCs vs the written ones")
+
+
+class MsgWire:
+    """One transport of the msg phase between named entities, each with
+    its dispatcher: ``localbus`` (one in-process LocalBus: sub-ops by
+    reference), ``tcp`` and ``tcp_sign`` (a TcpMessenger per entity on
+    127.0.0.1, the second with a KeyServer, so every frame carries an
+    HMAC tag) or ``shm`` (a ShmMessenger per entity, its doorbell socket
+    in Linux's abstract namespace, its rings where CEPH_TPU_SHM_DIR
+    says)."""
+
+    def __init__(self, kind: str, handlers: dict, secrets: dict):
+        self.kind, self.handlers, self.secrets = kind, handlers, secrets
+        self.bus, self.ends, self.addr = None, {}, {}
+
+    async def start(self) -> None:
+        import os
+
+        from ceph_tpu_torch.msg.auth import KeyServer
+        from ceph_tpu_torch.msg.messenger import LocalBus, TcpMessenger
+        from ceph_tpu_torch.msg.shmring import ShmMessenger
+
+        if self.kind == "localbus":
+            self.bus = LocalBus()
+            for name, h in self.handlers.items():
+                self.bus.register(name, h)
+        elif self.kind in ("tcp", "tcp_sign"):
+            keys = None
+            if self.kind == "tcp_sign":
+                keys = KeyServer()
+                for name in self.handlers:
+                    keys.add(name, self.secrets[name])
+            self.ends = {name: TcpMessenger(name, h, keys=keys)
+                         for name, h in self.handlers.items()}
+            book = {name: await m.listen("127.0.0.1", 0)
+                    for name, m in self.ends.items()}
+            for m in self.ends.values():
+                m.addrbook.update(book)
+        elif self.kind == "shm":
+            self.ends = {name: ShmMessenger(name, h)
+                         for name, h in self.handlers.items()}
+            self.addr = {name: await m.listen(
+                f"\0ctsm-{os.getpid()}-{id(self):x}-{name}")
+                for name, m in self.ends.items()}
+        else:
+            raise ValueError(f"unknown transport {self.kind!r}")
+
+    async def send(self, src: str, dst: str, msg) -> None:
+        if self.bus is not None:
+            await self.bus.send(src, dst, msg)
+        elif self.addr:
+            await self.ends[src].send(self.addr[dst], msg,
+                                      timeout=MSG_TIMEOUT_S)
+        else:
+            await self.ends[src].send(dst, msg)
+
+    def sender(self, src: str):
+        return lambda dst, msg: self.send(src, dst, msg)
+
+    def per_drain(self) -> float:
+        """Messages handed over per delivery burst (LocalBus), per
+        writer drain (TCP) or per doorbell byte (shm), over all entities."""
+        if self.bus is not None:
+            return self.bus.frames_per_drain
+        if self.addr:
+            pairs = [(m.zero_copy_gathers, m.doorbells)
+                     for m in self.ends.values()]
+        else:
+            pairs = [(m.frames_sent, m.drains) for m in self.ends.values()]
+        return sum(a for a, _ in pairs) / max(1, sum(b for _, b in pairs))
+
+    async def close(self) -> None:
+        if self.bus is not None:
+            await self.bus.drain()
+        for m in self.ends.values():
+            await m.close()
+
+
+def msg_wire_bytes(kind: str, n: int, stripes: int, su: int) -> int:
+    """Bytes one object's sub-ops put on the transport: each message's
+    payload (its sender's name, then its fields) in a frame of 16 bytes
+    (header and CRC) over TCP, plus a 16-byte HMAC tag a frame in sign
+    mode; the payload alone in a shm arena; none over LocalBus, which
+    hands the objects over by reference. Every message of a kind has one
+    size (fixed-width oids and tids), so one object's count is exact."""
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.utils import denc
+    from ceph_tpu_torch.utils.buffer import BufferList
+
+    if kind == "localbus":
+        return 0
+    frame = {"tcp": 16, "tcp_sign": 32, "shm": 0}[kind]
+
+    def size(src, msg):
+        return frame + len(msg.encode_bl(BufferList(denc.enc_str(src))))
+
+    rows, crcs, total = np.zeros((stripes, su), np.uint8), np.zeros(stripes), 0
+    for g in range(n):
+        osd = f"osd.{g}"
+        total += size("primary", msg_sub_write(2**63, g, msg_oid(0), rows,
+                                               crcs))
+        total += size(osd, M.MECSubWriteReply(tid=2**63, pgid=MSG_PGID,
+                                              shard=g, result=M.OK))
+        if g in MSG_LOST:
+            continue
+        total += size("primary", M.MECSubRead(
+            tid=2**63, pgid=MSG_PGID, shard=g, oid=msg_oid(0), offset=0,
+            length=-1))
+        total += size(osd, M.MECSubReadReply(
+            tid=2**63, pgid=MSG_PGID, shard=g, result=M.OK,
+            data=rows.reshape(-1), digest=0, size=rows.size, attrs={},
+            ver=(MSG_EPOCH, 0)))
+    return total
+
+
+async def msg_transport(kind: str, batcher, codec, su: int, data: np.ndarray,
+                        state: dict, secrets: dict) -> dict:
+    """One transport's run of the msg phase: the primary and its k + m
+    receivers on ``kind``, every object of ``data`` written, then read back
+    degraded and rebuilt -> the run's numbers."""
+    n = codec.k + codec.m
+    primary = MsgPrimary(batcher, codec, su, data)
+    shards = {f"osd.{g}": MsgShard(g, su) for g in range(n)}
+    wire = MsgWire(kind, {"primary": primary, **shards}, secrets)
+    t0 = time.perf_counter()
+    await wire.start()
+    primary.send = wire.sender("primary")
+    for name, shard in shards.items():
+        shard.send = wire.sender(name)
+    try:
+        _, wlat, write_s = await drive_async(primary.write_object, len(data),
+                                             MSG_CONCURRENCY, state)
+        _, rlat, read_s = await drive_async(primary.read_object, len(data),
+                                            MSG_CONCURRENCY, state)
+    finally:
+        await wire.close()
+    wall = time.perf_counter() - t0
+    errors = [e for s in shards.values() for e in s.errors]
+    check(not errors, f"{kind}: {errors[:3]}")
+    checked = sum(s.cells_checked for s in shards.values())
+    check(checked == len(data) * n * primary.stripes,
+          f"{kind}: receivers checked {checked} cells")
+    nbytes = data.nbytes
+    return {"objects": len(data), "sub_writes": len(data) * n,
+            "sub_reads": len(data) * (n - len(MSG_LOST)),
+            "cells_crc_checked": checked,
+            "rebuilt_cells": len(data) * primary.stripes * len(MSG_LOST),
+            "wire_bytes": len(data) * msg_wire_bytes(
+                kind, n, primary.stripes, su),
+            "data_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+            "wall_s": wall,
+            "write_GiB_per_s": nbytes / write_s / 2**30,
+            "read_GiB_per_s": nbytes / read_s / 2**30,
+            "sub_write_rtt_p50_ms": primary.write_rtt.percentile(0.5),
+            "sub_write_rtt_p99_ms": primary.write_rtt.percentile(0.99),
+            "sub_read_rtt_p50_ms": primary.read_rtt.percentile(0.5),
+            "sub_read_rtt_p99_ms": primary.read_rtt.percentile(0.99),
+            "object_write_p50_ms": float(np.percentile(wlat, 50) * 1e3),
+            "object_write_p99_ms": float(np.percentile(wlat, 99) * 1e3),
+            "object_read_p50_ms": float(np.percentile(rlat, 50) * 1e3),
+            "object_read_p99_ms": float(np.percentile(rlat, 99) * 1e3),
+            "frames_per_drain": wire.per_drain()}
+
+
+def msg_phase(dev, rng, card: str, transports=None,
+              profile: bool = True) -> dict:
+    """The cluster wire with EC traffic on the card (see the module
+    docstring): one ECBatcher, its decode pattern warmed past the
+    cold-shape shield first, then each transport of ``transports``
+    (name: objects; MSG_TRANSPORTS by default) in turn, every kernel's
+    count set to 0 just before it and read just after, the run under
+    torch.profiler when ``profile``. Prints a line per transport ->
+    {"launches": those runs' launches by kernel, "lines": the lines by
+    transport}."""
+    import os
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.cluster import ECBatcher
+    from ceph_tpu_torch.cluster.stripe import effective_stripe_unit
+    from ceph_tpu_torch.ec import load_codec
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.perf import PerfCounters
+
+    transports = MSG_TRANSPORTS if transports is None else transports
+    codec = load_codec(MSG_PROFILE, device=dev)
+    su = effective_stripe_unit(codec, ECB_SU)
+    check(su == ECB_SU, f"stripe unit {su} != {ECB_SU}")
+    k, n = codec.k, codec.k + codec.m
+    conf = config.proxy()
+    conf.apply({"osd_ec_batch_target_stripes": ECB_TARGET,
+                "osd_ec_batch_window": ECB_WINDOW})
+    perf = PerfCounters("osd.0")
+    ECBatcher.declare_counters(perf)
+    state = {"inflight": 0}
+    batcher = ECBatcher(perf, conf=conf,
+                        idle_probe=lambda: state["inflight"]
+                        <= batcher.parked())
+    data = random_bytes(rng, (max(transports.values()), MSG_OBJECT_BYTES))
+    secrets = {name: rng.bytes(32)
+               for name in ("primary", *(f"osd.{g}" for g in range(n)))}
+
+    # the OSD's steady state: the degraded-read pattern already promoted
+    # past the cold-shape shield (zero cells decode to zero cells)
+    t_warm, warm_rounds = time.perf_counter(), 0
+    zeros = np.zeros((ECB_TARGET * 32, k, su), np.uint8)
+    while not batcher._shape_warm:
+        check(warm_rounds < 64, "msg: the shield never promoted")
+        got = asyncio.run(batcher.decode_cells(codec, MSG_PRESENT, MSG_LOST,
+                                               zeros))
+        check(not got.any(), "msg warm-up: zero cells rebuilt non-zero")
+        warm_rounds += 1
+    while not all(batcher._shape_warm.values()):
+        check(time.perf_counter() - t_warm < 120, "msg: the warm did not end")
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    emit({"phase": "msg_warmup", "rounds": warm_rounds,
+          "stripes_per_round": len(zeros),
+          "seconds": time.perf_counter() - t_warm,
+          "warm_s": list(batcher.warm_seconds.values())})
+    del zeros
+
+    launches = {kk.name: 0 for kk in kernels.KERNELS}
+    lines = {}
+    ring_dir = tempfile.mkdtemp(prefix="ctsm")
+    shm_dir = os.environ.get("CEPH_TPU_SHM_DIR")
+    os.environ["CEPH_TPU_SHM_DIR"] = ring_dir
+    try:
+        for kind, n_obj in transports.items():
+            runs = []
+            before = perf.dump()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+
+            def run():
+                runs.append(asyncio.run(msg_transport(
+                    kind, batcher, codec, su, data[:n_obj], state,
+                    secrets)))
+
+            split = None
+            if profile:  # one pad: a rerun would repeat the transport
+                split = profile_split(run, pads=PROFILE_PADS_S[:1])
+            else:
+                run()
+            torch.cuda.synchronize()
+            counts = {kk.name: kk.launches for kk in kernels.KERNELS}
+            for key, v in counts.items():
+                launches[key] += v
+            d = counter_delta(perf.dump(), before)
+            check(d["ec_batch_failures"] == 0, f"msg {kind}: a batch failed")
+            check(d["ec_decode_cold_host"] == 0,
+                  f"msg {kind}: {d['ec_decode_cold_host']} decode rounds "
+                  "on the host engine")
+            line = {"phase": "msg", "transport": kind, **runs[0],
+                    "objects_cut_from": MSG_OBJECTS if n_obj < MSG_OBJECTS
+                    else None,
+                    "encode_batches": d["ec_batch_stripes"]["count"],
+                    "decode_batches": d["ec_decode_stripes"]["count"],
+                    "launches": counts, "card": card}
+            if split is not None:
+                window_ms = runs[0]["wall_s"] * 1e3
+                busy_ms = (split.get("window_ms", 0.0)
+                           * (1 - (split["idle_share"] or 0.0)))
+                line.update({
+                    "kernels_ms": split["kernels_ms"],
+                    "htod_ms": split["htod_ms"], "dtoh_ms": split["dtoh_ms"],
+                    "kernel_share": split["kernels_ms"] / window_ms,
+                    "busy_share": busy_ms / window_ms,
+                    "profile": {key: split.get(key) for key in PROFILE_CLOCK}})
+            lines[kind] = line
+            emit(line)
+    finally:
+        if shm_dir is None:
+            os.environ.pop("CEPH_TPU_SHM_DIR", None)
+        else:
+            os.environ["CEPH_TPU_SHM_DIR"] = shm_dir
+        shutil.rmtree(ring_dir, ignore_errors=True)
+        batcher.close()
+    return {"launches": launches, "lines": lines}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2148,6 +2647,20 @@ def main() -> int:
     cd = codecs_phase(dev, rng)
     timed.update(cd["timed"])
     seconds["codecs"] = time.perf_counter() - t0
+
+    # ---- phase 11: the cluster wire carrying the EC fan-out (K1 and K2
+    # through the ECBatcher) over LocalBus, TCP, signed TCP and shm
+    t0 = time.perf_counter()
+    emit({"phase": "msg", "transport": "tcp_secure", "skipped":
+          "left out: secure mode imports the cryptography package, which "
+          "the H100 machine does not have; tests/test_torch_auth.py runs "
+          "it on the CPU"})
+    wire = msg_phase(dev, rng, smi.splitlines()[0])
+    for key in ("gf_matmul", "crc32c"):
+        for kind, line in wire["lines"].items():
+            check(line["launches"][key] > 0,
+                  f"msg {kind} launched {key} {line['launches'][key]} times")
+    seconds["msg"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -2165,6 +2678,7 @@ def main() -> int:
         if name == "crc32c":
             paths["store"] = st["launches"]
         paths["codecs"] = cd["launches"][name]
+        paths["msg"] = wire["launches"][name]
         return paths
 
     table = [

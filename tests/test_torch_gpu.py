@@ -600,6 +600,24 @@ def test_batcher_repairs_a_clay_cell_on_the_card(cuda):
     assert np.array_equal(got[:, 0], every[:, 5])
 
 
+def test_msg_fan_out_on_the_card(cuda):
+    """Phase ``msg`` of chip_smoke.py at 8 objects over LocalBus and TCP:
+    K1 encodes and rebuilds, K2 checksums, every cell holds against its
+    (cell, crc) patch on its receiver and every degraded read rebuilds
+    shards 1 and 6 exact (the phase checks all of it and raises)."""
+    out = chip_smoke.msg_phase(cuda, np.random.default_rng(8), "gpu test",
+                               transports={"localbus": 8, "tcp": 8},
+                               profile=False)
+    for kind, line in out["lines"].items():
+        assert line["launches"]["gf_matmul"] > 0, kind
+        assert line["launches"]["crc32c"] > 0, kind
+        assert line["cells_crc_checked"] == 8 * 11 * 128
+        assert line["rebuilt_cells"] == 8 * 2 * 128
+        assert line["objects_cut_from"] == chip_smoke.MSG_OBJECTS
+    # every sub-write and read reply carries a shard's 512 KiB of cells
+    assert out["lines"]["tcp"]["wire_bytes"] > 8 * 20 * (512 << 10)
+
+
 def chip_smoke_conf(**knobs):
     from ceph_tpu_torch.utils import config
 
