@@ -1,14 +1,27 @@
-"""The OSD-side modules of the cluster tier, ported as the slices reach
-them (the JAX package's ``ceph_tpu/cluster``):
+"""The cluster tier (the JAX package's ``ceph_tpu/cluster``), in one
+process: mon-lite, OSD-lite, the PG, the client, the mgr and the
+TestCluster that assembles them over a LocalBus. Every module is the
+reference's host code with its own imports; the device seams are the
+port's:
 
 - ``ecbatch`` — the ECBatcher: coalesces EC encode/decode work into
   batched dispatches on the codec's device (pinned staging, one CUDA
   stream per worker thread) or on the C++ host core.
+- ``osd``, ``client``, ``vstart`` take ``device`` (the CUDA card unless
+  the caller names another) and hand it to the codecs, the placement
+  resolver and scrub.
 - ``stripe`` — fixed stripe-unit layout, per-cell CRCs, hinfo codec and
   the op-vector ``Overlay`` of the EC RMW write path.
 - ``messages`` — every cluster message type (re-exported here, as in
   the reference); ``snaps``, ``faults``, ``scheduler``, ``reserver``,
   ``optracker``, ``hedge`` and ``pglog`` are the tier's leaves.
+
+The cluster tier across processes (``daemon``, ``procstart``,
+``paxos_mon``) is not ported yet (ROADMAP §1 item 4).
 """
 from .ecbatch import FLUSH_REASONS, ECBatcher, codec_profile_key  # noqa: F401
 from .messages import *  # noqa: F401,F403
+from .mon import MonLite  # noqa: F401
+from .osd import OSDLite  # noqa: F401
+from .client import RadosClient  # noqa: F401
+from .vstart import TestCluster  # noqa: F401

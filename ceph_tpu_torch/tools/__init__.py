@@ -1,2 +1,3 @@
-"""Measurement aids run on the card by hand (``python3 -m
-ceph_tpu_torch.tools.<name>``); nothing in the package imports them."""
+"""Tools run by hand (``python3 -m ceph_tpu_torch.tools.<name>``): the
+measurement aids for the card and the seeded thrash runner (``thrash``);
+nothing in the package imports them."""

@@ -55,7 +55,7 @@ each as twins, one with ``device_csum=True`` on the card and one with
 the C++ core's checksums, take the same transactions in turn: 256 RBD
 objects of 4 MiB (1 GiB), then on WalStore one checkpoint, umount and
 mount (one checksum call over all 262,144 blocks each), and on
-BlueStoreLite 16,384 aligned 4 KiB overwrites and reads of every object
+BlueStoreLite 8,192 aligned 4 KiB overwrites and reads of every object
 before and after a remount. Every read is held against the twin and a
 numpy model, every stored checksum against the C++ core's CRC32C, K2's
 launches against the device twin's checksum calls, and a byte flipped on
@@ -95,6 +95,25 @@ shared-memory ring messenger; each prints its sub-ops, wire bytes, GiB/s,
 sub-op round trips, frames per drain, kernel launches and the card's busy
 share under torch.profiler. Secure mode is left out: it needs the
 ``cryptography`` package.
+
+Phase ``cluster`` drives the cluster tier in one process as an RBD
+deployment: a TestCluster of 12 OSDs (mon, OSDs with MemStores, mgr,
+client over LocalBus) on the card, an RBD data pool on jerasure
+reed_sol_van k=8, m=3 and a replicated size-3 pool of 32 PGs each, the
+client's placement resolver prewarmed (K4). 256 objects of 4 MiB (1 GiB)
+on the EC pool and 32 on the replicated one go through the client's aio
+window (K1 parity and K2 cell CRCs through each OSD's ECBatcher), are read
+back, take 1,024 aligned 4 KiB overwrites; two OSDs are killed, everything
+is read degraded (K1 rebuilds) and 32 more objects a pool are written;
+both are revived and recovered to active+clean (K1); every PG is
+deep-scrubbed, every EC shard's hash_info CRCs are held against the C++
+core's CRC of its bytes, and everything is read once more; then the seeded
+thrash verdict runs through ``ceph_tpu_torch.tools.thrash``. Every read
+must equal what was written, no op may fail (in placement or elsewhere),
+every decode round must run on K1. A line per step prints its GiB/s, op
+latency p50/p99, kernel launches, calls of the rs byte API, batches and
+placement counters; the write step runs under torch.profiler for the
+card's busy share.
 
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
@@ -181,9 +200,10 @@ PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 #: and on a WalStore with compression off and a WAL never compacted on its
 #: own (one explicit checkpoint of the whole GiB); then fio-style
 #: randwrite bs=4k overwrites (4 KiB aligned, fio's default blockalign)
-#: from a seeded generator.
+#: from a seeded generator: 8,192 of them (16,384 took 37-42 s; cut to
+#: keep the whole script near 650 s once phase cluster joined it).
 ST_OBJECTS, ST_OBJECT_BYTES, ST_DEVICE_BYTES = 256, 4 << 20, 4 << 30
-ST_RANDWRITES = 16384
+ST_RANDWRITES = 8192
 ST_POOL = "1.0"
 ST_IMAGE = "rbd_data.10226b8b4567"
 #: Free disk the phase needs under its temporary directory: two twins of
@@ -240,6 +260,44 @@ MSG_LOST, MSG_PRESENT = (1, 6), PRESENT
 MSG_PGID, MSG_EPOCH = (2, 0x1F), 1
 #: Seconds a sub-op may wait for its reply before the phase fails.
 MSG_TIMEOUT_S = 60.0
+
+#: The cluster phase: the cluster tier in one process, an RBD deployment.
+#: A TestCluster of CL_OSDS OSDs (MemStores over LocalBus) with an RBD data
+#: pool on jerasure reed_sol_van k=8, m=3 (the main path's code, Ceph's
+#: default 4 KiB stripe unit) and a replicated size-3 pool, each of
+#: CL_PG_NUM PGs (Ceph's osd_pool_default_pg_num). Objects of RBD's 4 MiB:
+#: CL_OBJECTS on the EC pool (1 GiB) and CL_REP_OBJECTS on the replicated
+#: one, through the client's aio window (client_max_inflight, default 64);
+#: CL_OVERWRITES fio-style randwrite bs=4k overwrites on the EC objects;
+#: OSDs CL_KILLED killed, everything read degraded and CL_DEGRADED_WRITES
+#: more objects written to each pool; both revived and recovered. The mon
+#: marks a dead OSD out after CL_OUT_INTERVAL s (Ceph's noout for a
+#: maintenance window: no remap while they are down). The OSDs' cold-shape
+#: shield is off (osd_ec_cold_shape_bytes 0; default 256 MiB): it keeps a
+#: decode pattern's first rounds on the host engine to hide a cold XLA
+#: compile in the JAX package, and the port's kernels are built before the
+#: phase. At the default no pattern of this phase would reach the card: an
+#: OSD serves ~85 MiB of degraded reads and ~11 MiB of rebuilds per
+#: pattern here. Every decode round must run on K1.
+CL_OSDS, CL_PG_NUM = 12, 32
+CL_EC_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
+                 "k": "8", "m": "3"}
+CL_EC_POOL, CL_REP_POOL = 2, 1
+CL_OBJECT_BYTES, CL_OBJECTS, CL_REP_OBJECTS = 4 << 20, 256, 32
+CL_OVERWRITES, CL_OVERWRITE_BYTES = 1024, 4096
+CL_KILLED, CL_DEGRADED_WRITES = (1, 6), 32
+CL_OUT_INTERVAL = 600.0
+CL_COLD_SHAPE_BYTES = 0
+#: Seconds the client may retry an op, and the cluster may take to become
+#: active+clean, before the phase fails.
+CL_OP_TIMEOUT_S, CL_CLEAN_TIMEOUT_S = 120.0, 300.0
+#: The batches K1 and K2 are timed at alone after the phase: the write
+#: step's mean encode batch, the degraded read's mean decode batch, and
+#: phase msg's 2,048-stripe LocalBus batch.
+CL_TIMED = ("cluster_wb", "cluster_rb", "msg_b2048")
+#: The seeded thrash verdict (tools/thrash.py --seed 20260803: rs k=3,
+#: m=2 on 5 OSDs), cut to the 4 s of tests/test_fabric.py's proc thrash.
+CL_THRASH = ["--seed", "20260803", "--duration", "4"]
 
 
 def emit(obj: dict) -> None:
@@ -426,7 +484,23 @@ def profile_split(run, pads=PROFILE_PADS_S) -> dict:
     idle share of the window from the first to the last device event
     (the union of every stream's events is the busy time), over the
     records caught."""
-    events, clock = profiled(run, pads)
+    return device_split(*profiled(run, pads))
+
+
+def events_split(prof) -> dict:
+    """``device_split`` of one finished torch.profiler trace."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    calls = sum(e.device_type == cpu and e.name in LAUNCH_CALLS
+                for e in prof.events())
+    kernels = sum(not e.name.lower().startswith(("memcpy", "memset"))
+                  for e in events)
+    return device_split(events, {"launches": calls, "caught": kernels})
+
+
+def device_split(events, clock: dict) -> dict:
+    """Device ms of HtoD copies, kernels and DtoH copies among ``events``
+    and the idle share of their window (see ``profile_split``)."""
     split = {"htod_ms": 0.0, "kernels_ms": 0.0, "dtoh_ms": 0.0,
              "other_ms": 0.0}
     spans = []
@@ -516,10 +590,7 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
     from ceph_tpu_torch import kernels, native
     from ceph_tpu_torch.cluster import FLUSH_REASONS, ECBatcher
     from ceph_tpu_torch.cluster.stripe import effective_stripe_unit
-    from ceph_tpu_torch.device import words_to_tensor
     from ceph_tpu_torch.ec import load_codec
-    from ceph_tpu_torch.ops import crc32c as crc_ops
-    from ceph_tpu_torch.ops import rs
     from ceph_tpu_torch.utils import config
     from ceph_tpu_torch.utils.perf import PerfCounters
 
@@ -680,22 +751,36 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
     # both kernels at the batcher's shapes: one 64-stripe batch of cells.
     # A call's event time there is mostly the host's launch path; the
     # profiler's device time is the kernel's own
-    w = su // 4
-    x = words_to_tensor(rng.integers(0, 2**32, (ECB_TARGET, k, w),
-                                     dtype=np.uint32), dev)
+    timed = batch_times(dev, rng, codec, ECB_TARGET, su, "batch")
+    return {"launches": launches, "timed": timed}
+
+
+def batch_times(dev, rng, codec, b: int, su: int, tag: str) -> dict:
+    """K1 (encode to the m parities, decode of ECB_WANT from PRESENT) and
+    K2 (the CRCs of data and parity where they lie) on one batch of ``b``
+    stripes of ``su``-byte cells, each against its plain version: CUDA
+    event ms, plain ms, bound, profiler device ms. Prints a ``time`` line
+    each -> {"gf_<tag>_write", "gf_<tag>_decode", "crc_<tag>_write": ...}."""
+    from ceph_tpu_torch.device import words_to_tensor
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.ops import rs
+
+    k, m, w = codec.k, codec.m, su // 4
+    x = words_to_tensor(rng.integers(0, 2**32, (b, k, w), dtype=np.uint32),
+                        dev)
     par = rs.gf_matmul(codec.matrix, x)
     rm = codec.decode_matrix_for(PRESENT, ECB_WANT)
     cases = {
-        "gf_batch_write": (lambda: rs.gf_matmul(codec.matrix, x),
-                           lambda: rs.gf_matmul_plain(codec.matrix, x),
-                           gf_work(ECB_TARGET, m, k, w)),
-        "gf_batch_decode": (lambda: rs.gf_matmul(rm, x),
-                            lambda: rs.gf_matmul_plain(rm, x),
-                            gf_work(ECB_TARGET, len(ECB_WANT), k, w)),
-        "crc_batch_write": (lambda: crc_ops.crc0_cells(x, par),
-                            lambda: crc_ops.crc0_words_plain(
-                                torch.cat([x, par], dim=1)),
-                            crc_work(ECB_TARGET * (k + m), w)),
+        f"gf_{tag}_write": (lambda: rs.gf_matmul(codec.matrix, x),
+                            lambda: rs.gf_matmul_plain(codec.matrix, x),
+                            gf_work(b, m, k, w)),
+        f"gf_{tag}_decode": (lambda: rs.gf_matmul(rm, x),
+                             lambda: rs.gf_matmul_plain(rm, x),
+                             gf_work(b, len(ECB_WANT), k, w)),
+        f"crc_{tag}_write": (lambda: crc_ops.crc0_cells(x, par),
+                             lambda: crc_ops.crc0_words_plain(
+                                 torch.cat([x, par], dim=1)),
+                             crc_work(b * (k + m), w)),
     }
     timed = {}
     for key, (kernel, plain, (nbytes, ops)) in cases.items():
@@ -706,10 +791,10 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
         prof = profile_steps(kernel, reps=20)
         timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "max_abs_err": err,
-                      "device_ms": device_ms(prof)}
+                      "device_ms": device_ms(prof), "stripes": b}
         emit({"phase": "time", "what": key, **timed[key],
               "profile": {k: prof[k] for k in PROFILE_CLOCK}})
-    return {"launches": launches, "timed": timed}
+    return timed
 
 
 def rule_bound(draws: int, nbytes: float) -> tuple[float, str]:
@@ -2391,6 +2476,434 @@ def msg_phase(dev, rng, card: str, transports=None,
     return {"launches": launches, "lines": lines}
 
 
+def cl_placement_failure(e: BaseException) -> bool:
+    """Whether ``e`` came out of the placement layer: a frame of
+    ``ceph_tpu_torch/placement`` in its traceback or in its cause's."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        tb = e.__traceback__
+        while tb is not None:
+            if "/placement/" in tb.tb_frame.f_code.co_filename:
+                return True
+            tb = tb.tb_next
+        e = e.__cause__ or e.__context__
+    return False
+
+
+async def cl_ops(client, ops: list) -> dict:
+    """Submit ``ops`` [(pool, name, op vector, bytes a read must return
+    or None)] through the client's aio window and wait for all of them ->
+    {"lat_s": each op's seconds from entering the window to its reply,
+    "wall_s", "failed": failures, "placement_failed": those that came out
+    of the placement layer, "mismatched": reads unequal to their bytes}."""
+    lat = [0.0] * len(ops)
+    comps = []
+    t0 = time.perf_counter()
+    for i, (pool, name, opvec, _) in enumerate(ops):
+        comp = await client.aio_submit(pool, name, opvec)
+        t_in = time.perf_counter()
+        comp.add_done_callback(
+            lambda _c, i=i, t_in=t_in: lat.__setitem__(
+                i, time.perf_counter() - t_in))
+        comps.append(comp)
+    await client.writes_wait()
+    wall = time.perf_counter() - t0
+    failed, placement, mismatched = [], 0, 0
+    for (pool, name, _, want), comp in zip(ops, comps):
+        try:
+            reply = comp.result()
+        except Exception as e:  # every failure is counted, then fails
+            failed.append(f"{pool}/{name}: {e!r}")
+            placement += cl_placement_failure(e)
+            continue
+        if want is not None and bytes(reply.outs[0][1]) != want:
+            mismatched += 1
+    return {"lat_s": lat, "wall_s": wall, "failed": failed,
+            "placement_failed": placement, "mismatched": mismatched}
+
+
+class ClSteps:
+    """The cluster phase's ledger, read at each step's end: kernel
+    launches, calls of the rs byte API (``RSCodec.encode_chunks`` /
+    ``decode_chunks``), the recovery reservations a PG asked of its
+    targets (``PG._reserve_remote``: granted, or timed out after 4 x
+    ``osd_subop_timeout``), the OSDs' decode rounds on the device and on
+    the host engine, and the client's placement counters, each as the
+    step's delta."""
+
+    def __init__(self, card: str):
+        from ceph_tpu_torch import kernels
+        from ceph_tpu_torch.cluster.pg import PG
+        from ceph_tpu_torch.ec import rs_plugin
+
+        self.card = card
+        self.kernels = kernels
+        self.rs_calls = {"encode_chunks": 0, "decode_chunks": 0}
+        self.reserve = {"granted": 0, "timed_out": 0}
+        self._real = [(rs_plugin.RSCodec, n, getattr(rs_plugin.RSCodec, n))
+                      for n in self.rs_calls]
+        for cls, n, fn in self._real:
+            def counted(*a, _n=n, _fn=fn, **kw):
+                self.rs_calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(cls, n, counted)
+        reserve = PG._reserve_remote
+
+        async def reserve_counted(pg, o):
+            ok = await reserve(pg, o)
+            self.reserve["granted" if ok else "timed_out"] += 1
+            return ok
+        self._real.append((PG, "_reserve_remote", reserve))
+        PG._reserve_remote = reserve_counted
+        self.lines: dict[str, dict] = {}
+        self.cluster = None
+        self._last = None
+
+    def close(self) -> None:
+        for cls, n, fn in self._real:
+            setattr(cls, n, fn)
+
+    def _osd_counters(self) -> dict:
+        out = {}
+        for o in self.cluster.osds if self.cluster is not None else ():
+            if o is not None:
+                d = o.perf.dump()
+                out[id(o)] = (d["ec_decode_cold_host"],
+                              d["ec_decode_stripes"]["count"],
+                              d["ec_batch_stripes"]["count"],
+                              d["ec_decode_stripes"]["sum"],
+                              d["ec_batch_stripes"]["sum"])
+        return out
+
+    def _snapshot(self) -> dict:
+        torch.cuda.synchronize()
+        client = self.cluster.client if self.cluster is not None else None
+        return {"t": time.perf_counter(),
+                "launches": {k.name: k.launches
+                             for k in self.kernels.KERNELS},
+                "rs": dict(self.rs_calls), "reserve": dict(self.reserve),
+                "osds": self._osd_counters(),
+                "placement": dict(client.placement_stats())
+                if client is not None else {}}
+
+    def start(self) -> None:
+        """Every count to 0 just before the phase drives its path."""
+        torch.cuda.synchronize()
+        self.kernels.reset_counts()
+        self._last = self._snapshot()
+
+    def mark(self, step: str, **extra) -> dict:
+        now = self._snapshot()
+        last = self._last
+        moved = [0] * 5  # host rounds, decode/encode batches and stripes
+        for key, now_c in now["osds"].items():
+            for i, (v, v0) in enumerate(zip(
+                    now_c, last["osds"].get(key, (0,) * 5))):
+                moved[i] += v - v0
+        host, decode, encode, decode_stripes, encode_stripes = moved
+        line = {"phase": "cluster", "step": step,
+                "seconds": now["t"] - last["t"],
+                "launches": {n: v - last["launches"][n]
+                             for n, v in now["launches"].items()},
+                "rs_byte_api": {n: v - last["rs"][n]
+                                for n, v in now["rs"].items()},
+                "reservations": {n: v - last["reserve"][n]
+                                 for n, v in now["reserve"].items()},
+                "encode_batches": encode, "decode_batches": decode,
+                "encode_stripes": encode_stripes,
+                "decode_stripes": decode_stripes,
+                "decode_host_rounds": host,
+                "placement": {n: v - last["placement"].get(n, 0)
+                              for n, v in now["placement"].items()},
+                **extra, "card": self.card}
+        self.lines[step] = line
+        self._last = self._snapshot()
+        emit(line)
+        return line
+
+    def totals(self) -> dict:
+        out = {k.name: 0 for k in self.kernels.KERNELS}
+        for line in self.lines.values():
+            for n, v in line["launches"].items():
+                out[n] += v
+        return out
+
+
+def cl_traffic(res: dict, nbytes: int) -> dict:
+    """A step's traffic numbers from ``cl_ops``'s result (failures
+    checked by the caller)."""
+    lat = np.asarray(res["lat_s"]) * 1e3
+    return {"ops": len(lat), "bytes": nbytes,
+            "GiB_per_s": nbytes / 2**30 / res["wall_s"],
+            "wall_s": res["wall_s"],
+            "lat_p50_ms": float(np.percentile(lat, 50)),
+            "lat_p99_ms": float(np.percentile(lat, 99)),
+            "failed_ops": len(res["failed"]),
+            "placement_failed_ops": res["placement_failed"]}
+
+
+def cl_check(res: dict, what: str) -> None:
+    check(not res["failed"], f"cluster {what}: {len(res['failed'])} ops "
+                             f"failed, first {res['failed'][:3]}")
+    check(res["placement_failed"] == 0,
+          f"cluster {what}: {res['placement_failed']} ops failed on "
+          "placement")
+    check(res["mismatched"] == 0,
+          f"cluster {what}: {res['mismatched']} reads differ from what "
+          "was written")
+
+
+async def cl_profiled(coro_fn, pad: float = PROFILE_PADS_S[0]):
+    """Await ``coro_fn()`` under torch.profiler, the window padded by
+    ``pad`` seconds at each end -> (its result, the device split as
+    ``profile_split`` gives it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        await asyncio.sleep(pad)
+        out = await coro_fn()
+        torch.cuda.synchronize()
+        await asyncio.sleep(pad)
+    return out, events_split(prof)
+
+
+async def cl_drive(steps: ClSteps, device, rng, objects: int,
+                   rep_objects: int, overwrites: int,
+                   degraded_writes: int, profile: bool) -> dict:
+    """The cluster phase's traffic on one event loop (see
+    ``cluster_phase``)."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.cluster import TestCluster
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.cluster.pg import ATTR_HINFO, META_OID
+    from ceph_tpu_torch.cluster.stripe import dec_hinfo
+    from ceph_tpu_torch.placement.osdmap import Pool
+
+    c = TestCluster(n_osds=CL_OSDS, out_interval=CL_OUT_INTERVAL,
+                    osd_conf={"osd_ec_cold_shape_bytes":
+                              CL_COLD_SHAPE_BYTES}, device=device)
+    steps.cluster = c
+    out = {}
+    await c.start()
+    try:
+        steps.start()
+        c.client.op_timeout = CL_OP_TIMEOUT_S
+        await c.client.create_pool(Pool(
+            id=CL_REP_POOL, name="rbd", size=3, min_size=2,
+            pg_num=CL_PG_NUM, crush_rule=0))
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="rbd_data", size=11, min_size=8,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await c.wait_active(60)
+        warmed = await c.client._placement.prewarm(
+            c.client.osdmap, [CL_REP_POOL, CL_EC_POOL])
+        check(warmed == 2 * CL_PG_NUM, f"cluster prewarm {warmed}")
+        su = c.osds[0].sinfo_for(c.mon.osdmap.pools[CL_EC_POOL]).su
+        check(su == ECB_SU, f"cluster stripe unit {su}")
+        steps.mark("setup", prewarmed_pgids=warmed,
+                   client_max_inflight=c.client.conf["client_max_inflight"])
+
+        # the model: what every object must read back as
+        model = {(CL_EC_POOL, f"rbd_data.{i:016x}"): rng.bytes(
+            CL_OBJECT_BYTES) for i in range(objects)}
+        model.update({(CL_REP_POOL, f"rbd_rep.{i:016x}"): rng.bytes(
+            CL_OBJECT_BYTES) for i in range(rep_objects)})
+
+        def writes(names):
+            return [(p, n, [M.osd_op("writefull", data=model[(p, n)])],
+                     None) for p, n in names]
+
+        def reads():
+            return [(p, n, [M.osd_op("read", offset=0, length=-1)],
+                     bytes(d)) for (p, n), d in model.items()]
+
+        nbytes = sum(len(d) for d in model.values())
+        step = writes(list(model))
+        split = None
+        if profile:
+            res, split = await cl_profiled(lambda: cl_ops(c.client, step))
+        else:
+            res = await cl_ops(c.client, step)
+        cl_check(res, "write")
+        extra = {}
+        if split is not None:
+            window_ms = res["wall_s"] * 1e3
+            extra = {"kernels_ms": split["kernels_ms"],
+                     "htod_ms": split["htod_ms"],
+                     "dtoh_ms": split["dtoh_ms"],
+                     "busy_share": split.get("window_ms", 0.0)
+                     * (1 - (split["idle_share"] or 0.0)) / window_ms,
+                     "kernel_share": split["kernels_ms"] / window_ms,
+                     "profile": {k: split.get(k) for k in PROFILE_CLOCK}}
+        out["write"] = steps.mark("write", **cl_traffic(res, nbytes), **extra)
+
+        res = await cl_ops(c.client, reads())
+        cl_check(res, "read")
+        out["read"] = steps.mark("read", **cl_traffic(res, nbytes))
+
+        # fio randwrite bs=4k on the EC objects: aligned, seeded
+        ec_names = [n for p, n in model if p == CL_EC_POOL]
+        step = []
+        for _ in range(overwrites):
+            name = ec_names[int(rng.integers(len(ec_names)))]
+            off = int(rng.integers(CL_OBJECT_BYTES // CL_OVERWRITE_BYTES)) \
+                * CL_OVERWRITE_BYTES
+            patch = rng.bytes(CL_OVERWRITE_BYTES)
+            d = bytearray(model[(CL_EC_POOL, name)])
+            d[off:off + CL_OVERWRITE_BYTES] = patch
+            model[(CL_EC_POOL, name)] = bytes(d)
+            step.append((CL_EC_POOL, name,
+                         [M.osd_op("write", offset=off, data=patch)], None))
+        res = await cl_ops(c.client, step)
+        cl_check(res, "overwrite")
+        out["overwrite"] = steps.mark(
+            "overwrite", **cl_traffic(res, overwrites * CL_OVERWRITE_BYTES))
+
+        for i in CL_KILLED:
+            await c.kill_osd(i)
+        for i in CL_KILLED:
+            await c.wait_down(i, timeout=30)
+        steps.mark("kill", killed=list(CL_KILLED))
+        res = await cl_ops(c.client, reads())
+        cl_check(res, "degraded read")
+        out["degraded_read"] = steps.mark("degraded_read",
+                                          **cl_traffic(res, nbytes))
+        late = [(p, f"{base}.late.{i:04x}")
+                for p, base in ((CL_EC_POOL, "rbd_data"),
+                                (CL_REP_POOL, "rbd_rep"))
+                for i in range(degraded_writes)]
+        for key in late:
+            model[key] = rng.bytes(CL_OBJECT_BYTES)
+        res = await cl_ops(c.client, writes(late))
+        cl_check(res, "degraded write")
+        out["degraded_write"] = steps.mark(
+            "degraded_write",
+            **cl_traffic(res, len(late) * CL_OBJECT_BYTES))
+
+        t0 = time.perf_counter()
+        for i in CL_KILLED:
+            await c.revive_osd(i)
+        await c.wait_clean(CL_CLEAN_TIMEOUT_S)
+        out["recovery"] = steps.mark(
+            "recovery", recovery_s=time.perf_counter() - t0,
+            health=c.mon.health())
+
+        inconsistent = 0
+        for pool in (CL_EC_POOL, CL_REP_POOL):
+            for ps in range(CL_PG_NUM):
+                rep = await c.scrub_pg((pool, ps))
+                inconsistent += len(rep["inconsistent"])
+        check(inconsistent == 0,
+              f"cluster scrub: {inconsistent} inconsistent objects")
+        shards = cells = 0
+        for store in c.stores:
+            for cid in store.list_collections():
+                if not cid.startswith(f"{CL_EC_POOL}."):
+                    continue
+                for oid in store.list_objects(cid):
+                    if oid == META_OID:
+                        continue
+                    data = np.frombuffer(store.read(cid, oid), np.uint8)
+                    want = dec_hinfo(store.getattr(cid, oid, ATTR_HINFO))
+                    got = native.crc32c_batch(data.reshape(-1, su))
+                    check(np.array_equal(got, want),
+                          f"cluster: {cid}/{oid!r} hash_info differs from "
+                          "the C++ core's CRC of its bytes")
+                    shards += 1
+                    cells += len(got)
+        check(shards == 11 * (objects + degraded_writes),
+              f"cluster: {shards} EC shards stored")
+        out["scrub"] = steps.mark("scrub", pgs=2 * CL_PG_NUM,
+                                  inconsistent=inconsistent,
+                                  shards_crc_checked=shards,
+                                  cells_crc_checked=cells)
+
+        res = await cl_ops(c.client, reads())
+        cl_check(res, "read after recovery")
+        out["read_clean"] = steps.mark("read_clean",
+                                       **cl_traffic(res, sum(
+                                           len(d) for d in model.values())))
+    finally:
+        await c.stop()
+        steps.cluster = None
+    return out
+
+
+def cluster_phase(card: str, rng, device=None, objects: int = CL_OBJECTS,
+                  rep_objects: int = CL_REP_OBJECTS,
+                  overwrites: int = CL_OVERWRITES,
+                  degraded_writes: int = CL_DEGRADED_WRITES,
+                  thrash=CL_THRASH, profile: bool = True) -> dict:
+    """The cluster tier in one process with an RBD deployment's traffic
+    (see the CL_* constants): a TestCluster on ``device`` (the card when
+    None, as a user leaves it), every count set to 0 at its start; the
+    client's resolver prewarmed so its misses run on K4; writes, reads,
+    4 KiB overwrites, two OSDs killed, degraded reads and writes, their
+    revival and recovery, a deep-scrub of every PG, every EC shard's
+    hash_info CRCs against the C++ core, a last read; then the seeded
+    thrash through ``ceph_tpu_torch.tools.thrash``. A line per step ->
+    {"lines": the lines by step, "launches": the phase's launches by
+    kernel, "thrash": the verdict}."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch.tools import thrash as thrash_tool
+
+    steps = ClSteps(card)
+    try:
+        t0 = time.perf_counter()
+        asyncio.run(cl_drive(steps, device, rng, objects, rep_objects,
+                             overwrites, degraded_writes, profile))
+        drive_s = time.perf_counter() - t0
+        host = {s: line["decode_host_rounds"]
+                for s, line in steps.lines.items()
+                if line["decode_host_rounds"]}
+        check(not host, f"cluster: decode rounds on the host engine {host}")
+        argv = list(thrash) + ([] if device is None
+                               else ["--device", str(device)])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = thrash_tool.main(argv)
+        verdict = json.loads(buf.getvalue())
+        check(rc == 0 and verdict["passed"],
+              f"cluster thrash verdict failed: {verdict}")
+        steps.mark("thrash", argv=argv, passed=verdict["passed"],
+                   converged=verdict["converged"],
+                   scrub_inconsistent=len(verdict["scrub_inconsistent"]),
+                   oracle_mismatches=len(verdict["oracle_mismatches"]),
+                   writes_acked=verdict["writes_acked"],
+                   events=len(verdict["events"]),
+                   hedge_counters=verdict.get("hedge_counters"),
+                   ec_counters=verdict["ec_counters"])
+    finally:
+        steps.close()
+    launches = steps.totals()
+    timed = {}
+    if profile:
+        # K1 and K2 alone at the batches this path made: the write step's
+        # mean encode batch and the degraded read's mean decode batch,
+        # and the 2,048 stripes of phase msg's LocalBus batches
+        from ceph_tpu_torch.ec import load_codec
+
+        w, r = steps.lines["write"], steps.lines["degraded_read"]
+        sizes = dict(zip(CL_TIMED, (
+            round(w["encode_stripes"] / w["encode_batches"]),
+            round(r["decode_stripes"] / r["decode_batches"]), 2048)))
+        codec = load_codec(CL_EC_PROFILE, device=device)
+        for tag, b in sizes.items():
+            timed.update(batch_times(codec.device, rng, codec, b, ECB_SU,
+                                     tag))
+    emit({"phase": "cluster_launches", **launches,
+          "rs_byte_api": {s: line["rs_byte_api"]
+                          for s, line in steps.lines.items()},
+          "drive_s": drive_s})
+    return {"lines": steps.lines, "launches": launches, "thrash": verdict,
+            "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2661,6 +3174,16 @@ def main() -> int:
             check(line["launches"][key] > 0,
                   f"msg {kind} launched {key} {line['launches'][key]} times")
     seconds["msg"] = time.perf_counter() - t0
+
+    # ---- phase 12: the cluster tier in one process (mon, OSDs, PGs,
+    # client, mgr) with an RBD deployment's traffic and the seeded thrash
+    t0 = time.perf_counter()
+    cl = cluster_phase(smi.splitlines()[0], rng)
+    timed.update(cl["timed"])
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(cl["launches"][key] > 0,
+              f"the cluster phase launched {key} {cl['launches'][key]} times")
+    seconds["cluster"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -2668,7 +3191,8 @@ def main() -> int:
         return {k.split("_", 1)[1]: {f: timed[k][f] for f in
                                      ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "device_ms", "copy_bound_ms", "draws",
-                                      "group", "step_ms", "max_abs_err",
+                                      "group", "step_ms", "stripes",
+                                      "max_abs_err",
                                       "head_max_abs_err")
                                      if f in timed[k]}
                 for k in keys}
@@ -2679,6 +3203,7 @@ def main() -> int:
             paths["store"] = st["launches"]
         paths["codecs"] = cd["launches"][name]
         paths["msg"] = wire["launches"][name]
+        paths["cluster"] = cl["launches"][name]
         return paths
 
     table = [
@@ -2691,11 +3216,15 @@ def main() -> int:
                             timed["gf_batch_write"]["max_abs_err"],
                             timed["gf_batch_decode"]["max_abs_err"],
                             timed["gf_lrc_encode"]["max_abs_err"],
-                            timed["gf_clay_round"]["max_abs_err"]),
+                            timed["gf_clay_round"]["max_abs_err"],
+                            *(timed[f"gf_{t}_{s}"]["max_abs_err"]
+                              for t in CL_TIMED for s in ("write", "decode"))),
          "library_ms": None, "launches_by_path": by_path("gf_matmul"),
          "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
                           "gf_batch_decode", "gf_lrc_encode",
-                          "gf_clay_round")},
+                          "gf_clay_round",
+                          *(f"gf_{t}_{s}" for t in CL_TIMED
+                            for s in ("write", "decode")))},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:231",
@@ -2706,11 +3235,14 @@ def main() -> int:
                             timed["crc_batch_write"]["max_abs_err"],
                             timed["crc_lrc_encode"]["max_abs_err"],
                             *(timed[f"crc_store_{k}"]["max_abs_err"]
-                              for k in ST_SHAPES)),
+                              for k in ST_SHAPES),
+                            *(timed[f"crc_{t}_write"]["max_abs_err"]
+                              for t in CL_TIMED)),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
                           "crc_batch_write", "crc_lrc_encode",
-                          *(f"crc_store_{k}" for k in ST_SHAPES))},
+                          *(f"crc_store_{k}" for k in ST_SHAPES),
+                          *(f"crc_{t}_write" for t in CL_TIMED))},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",
          "replaces": "ceph_tpu/ops/crush.py:255",
@@ -2721,7 +3253,8 @@ def main() -> int:
              timed["straw2_config5"]["max_abs_err"],
              timed["straw2_65536"]["max_abs_err"]),
          "library_ms": None,
-         "launches_by_path": {"placement": pl["launches"]["straw2"]},
+         "launches_by_path": {"placement": pl["launches"]["straw2"],
+                              "cluster": cl["launches"]["straw2"]},
          "shapes": shapes("straw2_config5", "straw2_65536")},
         {"name": "crush_rule", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crush_rule.cu",
@@ -2735,7 +3268,8 @@ def main() -> int:
              *(timed[f"crush_rule_{r}_full"]["head_max_abs_err"]
                for r in PL_RULES)),
          "library_ms": None,
-         "launches_by_path": {"placement": pl["launches"]["crush_rule"]},
+         "launches_by_path": {"placement": pl["launches"]["crush_rule"],
+                              "cluster": cl["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
                             for s in ("full", "65536", "64")))},
         {"name": "gf2_xor", "route": "cuda",
@@ -2746,7 +3280,8 @@ def main() -> int:
                             timed["gf2_encode"]["max_abs_err"],
                             timed["gf2_decode"]["max_abs_err"]),
          "library_ms": None,
-         "launches_by_path": {"codecs": cd["launches"]["gf2_xor"]},
+         "launches_by_path": {"codecs": cd["launches"]["gf2_xor"],
+                              "cluster": cl["launches"]["gf2_xor"]},
          "shapes": shapes("gf2_encode", "gf2_decode")},
     ]
     emit({"kernels": table})

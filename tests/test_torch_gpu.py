@@ -618,6 +618,27 @@ def test_msg_fan_out_on_the_card(cuda):
     assert out["lines"]["tcp"]["wire_bytes"] > 8 * 20 * (512 << 10)
 
 
+def test_cluster_on_the_card(cuda):
+    """Phase ``cluster`` of chip_smoke.py, small: a TestCluster of 12 OSDs
+    on the card (no device named) writes 8 objects of 4 MiB to the EC
+    8+3 pool and 2 to the replicated one, reads them, overwrites 16 cells,
+    loses two OSDs, reads degraded, writes 4 more objects a pool, revives
+    and recovers, deep-scrubs, reads again (the phase checks every byte,
+    every shard's hash_info and the scrub, and raises), then runs the
+    thrash runner. K1 and K2 run the EC work, K4 the client's prewarm."""
+    out = chip_smoke.cluster_phase(
+        "gpu test", np.random.default_rng(9), objects=8, rep_objects=2,
+        overwrites=16, degraded_writes=4, profile=False)
+    lines = out["lines"]
+    assert lines["write"]["launches"]["gf_matmul"] > 0
+    assert lines["write"]["launches"]["crc32c"] > 0
+    assert lines["degraded_read"]["launches"]["gf_matmul"] > 0
+    assert lines["recovery"]["launches"]["gf_matmul"] > 0
+    assert lines["setup"]["launches"]["crush_rule"] > 0
+    assert lines["scrub"]["shards_crc_checked"] == 11 * (8 + 4)
+    assert out["thrash"]["passed"]
+
+
 def chip_smoke_conf(**knobs):
     from ceph_tpu_torch.utils import config
 

@@ -87,6 +87,26 @@ def test_no_device_and_no_card_raises(monkeypatch):
     assert resolve("cpu") == torch.device("cpu")
 
 
+def test_cluster_with_no_device_and_no_card_raises(monkeypatch):
+    """The cluster tier resolves its device when it is built: with none
+    named and no card, a TestCluster, an OSD, a client and the thrash
+    runner raise instead of running on the CPU."""
+    from ceph_tpu_torch.cluster import OSDLite, RadosClient, TestCluster
+    from ceph_tpu_torch.msg.messenger import LocalBus
+    from ceph_tpu_torch.tools import thrash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TestCluster(n_osds=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OSDLite(LocalBus(), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RadosClient(LocalBus())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        thrash.main(["--seed", "1"])
+    assert TestCluster(n_osds=3, device="cpu").device == torch.device("cpu")
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
