@@ -10,8 +10,7 @@ ceph_tpu_torch's own copy of ``ceph_tpu/cluster/vstart.py``. ``device``
 (new) is resolved once and handed to every OSD and the client: the CUDA
 card unless the caller names another (the CPU tests pass ``"cpu"``);
 with none named and no card, construction raises. A quorum of mons
-(``n_mons > 1``) needs ``paxos_mon``, which comes with the cluster tier
-across processes (ROADMAP §1 item 4), and raises until then.
+(``n_mons > 1``) runs on ``paxos_mon`` and uses no device.
 """
 from __future__ import annotations
 
@@ -26,14 +25,6 @@ from .faults import FaultPlane
 from .mgr import MgrLite
 from .mon import MonLite
 from .osd import OSDLite
-
-
-def _paxos_mon():
-    """The quorum mon class (the reference imports ``.paxos_mon`` here);
-    raises until that module is ported."""
-    raise NotImplementedError(
-        "a mon quorum (n_mons > 1) needs cluster/paxos_mon.py, which the "
-        "port has not taken yet (ROADMAP §1 item 4)")
 
 
 class _LeaderRef:
@@ -85,7 +76,8 @@ class TestCluster:
 
         self._make_mon_store = _mon_store
         if n_mons > 1:
-            PaxosMon = _paxos_mon()
+            from .paxos_mon import PaxosMon
+
             self.mons: list = [
                 PaxosMon(self.bus, n_osds, rank=r, n_mons=n_mons,
                          crush=crush, hb_grace=hb_grace,
@@ -157,7 +149,7 @@ class TestCluster:
         the thrasher): the fresh replica rejoins and catches up via the
         collect round — or from its durable MonStore when one exists."""
         assert self.n_mons > 1 and self.mons[rank] is None
-        PaxosMon = _paxos_mon()
+        from .paxos_mon import PaxosMon
 
         m = PaxosMon(self.bus, self.n_osds, rank=rank,
                      n_mons=self.n_mons, crush=self._crush,

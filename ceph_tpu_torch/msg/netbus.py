@@ -34,7 +34,12 @@ a unix-socket doorbell per burst. The book entry then reads
 via the host/port half. Entity-envelope signatures (_env_sig) are
 backend-independent.
 
-ceph_tpu_torch's own copy of ``ceph_tpu/msg/netbus.py``.
+ceph_tpu_torch's own copy of ``ceph_tpu/msg/netbus.py``, with one
+repair: every send reads its destination's book entry. The reference
+cached an address until a send to it failed, but a send to a process
+that has since dropped the ``mon`` alias succeeds and is discarded
+there, so a client whose cache went stale in an election sent every
+mon op to a peon until it timed out (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -96,8 +101,12 @@ class NetBus:
         self._addr: tuple[str, int] | None = None
         self._shm_path: str | None = None
         self._tasks: set[asyncio.Task] = set()
-        #: entity -> parsed book address, invalidated on send failure
-        #: (peers re-listen on new ports/sockets after restart)
+        #: entity -> (book entry, its parsed address): the parse is
+        #: reused while the entry reads the same. The entry itself is
+        #: read on every send: peers re-listen on new ports/sockets
+        #: after restart, and the "mon" alias moves between LIVE
+        #: processes, where a send to the old holder succeeds and is
+        #: dropped, so no send failure would ever refresh it
         self._cache: dict[str, tuple] = {}
 
     # ----------------------------------------------------------- lifecycle
@@ -200,12 +209,16 @@ class NetBus:
 
     def _resolve_ep(self, name: str) -> tuple:
         """-> ("tcp", host, port) or ("shm", sock_path, host, port)."""
-        addr = self._cache.get(name)
-        if addr is not None:
-            return addr
         try:
             with open(self._book_path(name)) as f:
-                tok = f.read().split()
+                entry = f.read()
+        except OSError:
+            raise SendError(f"no such entity {name!r}") from None
+        cached = self._cache.get(name)
+        if cached is not None and cached[0] == entry:
+            return cached[1]
+        try:
+            tok = entry.split()
             if tok and tok[0] == "shm":
                 addr = ("shm", tok[1], tok[2], int(tok[3]))
             else:
@@ -213,7 +226,7 @@ class NetBus:
                 addr = ("tcp", host, int(port))
         except (OSError, ValueError, IndexError):
             raise SendError(f"no such entity {name!r}") from None
-        self._cache[name] = addr
+        self._cache[name] = (entry, addr)
         return addr
 
     # ------------------------------------------------------------ transport

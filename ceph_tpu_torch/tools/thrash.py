@@ -1,8 +1,9 @@
 """thrash: seeded EC thrash runner with a JSON verdict, on the port.
 
-ceph_tpu_torch's own copy of the in-process arm of ``tools/thrash.py``
-(``main``'s arguments, ``_ec_profile`` and ``_run``): assemble an
-in-process TestCluster on ``--device``, create a k/m EC pool, run a
+ceph_tpu_torch's own copy of ``tools/thrash.py`` (``main``'s arguments,
+``_ec_profile``, ``_run`` and ``_run_proc``): assemble a TestCluster in
+one process (or, with ``--proc``, a ProcCluster of daemon processes) on
+``--device``, create a k/m EC pool, run a
 deterministic fault schedule (OSD kill/revive/flap, one rolling
 partition, bitrot on a fraction of reads) under concurrent
 oracle-checked writers, then demand convergence — active+clean, a
@@ -13,13 +14,14 @@ Usage:
     python3 -m ceph_tpu_torch.tools.thrash --seed 20260803 --duration 20
     python3 -m ceph_tpu_torch.tools.thrash --seed 7 --device cpu \
         --profile liberation
+    python3 -m ceph_tpu_torch.tools.thrash --proc --backend shm \
+        --seed 20260803 --duration 20 --osds 6 --objects 24 --settle 150
 
 ``--device`` names where the cluster's codecs and placement run (the
-CUDA card when left out). ``--chip-loss`` needs the multi-device data
-plane (``parallel/``, ROADMAP §1 item 6) and ``--proc`` the process
-tier (``procstart``, item 4); each raises ``NotImplementedError`` until
-its module is ported, as does ``--mons`` > 1 (``paxos_mon``, item 4).
-``--schedule-only`` prints the schedule for any arguments.
+CUDA card when left out; with ``--proc``, every OSD process's device).
+``--chip-loss`` needs the multi-device data plane (``parallel/``,
+ROADMAP §1 item 6) and raises ``NotImplementedError`` until it is
+ported. ``--schedule-only`` prints the schedule for any arguments.
 
 Exit codes: 0 the verdict passed, 1 it failed, 2 usage error.
 Same seed => same schedule => same verdict (the replayability
@@ -142,10 +144,9 @@ def main(argv: list[str] | None = None) -> int:
             "--chip-loss needs parallel/, which the port has not taken "
             "yet (ROADMAP §1 item 6)")
     if args.proc:
-        raise NotImplementedError(
-            "--proc needs cluster/procstart.py, which the port has not "
-            "taken yet (ROADMAP §1 item 4)")
-    verdict = asyncio.run(_run(args, max_unavail))
+        verdict = asyncio.run(_run_proc(args, max_unavail))
+    else:
+        verdict = asyncio.run(_run(args, max_unavail))
     print(json.dumps(verdict, indent=1, sort_keys=True))
     return 0 if verdict["passed"] else 1
 
@@ -221,6 +222,174 @@ async def _run(args, max_unavail: int) -> dict:
     finally:
         await c.stop()
     return verdict
+
+
+async def _run_proc(args, max_unavail: int) -> dict:
+    """Process-tier thrash: the same seeded schedule applied to a
+    ProcCluster of REAL daemon processes over the chosen messenger
+    backend (tcp or shm).  kill means SIGKILL of an OS process;
+    revive means a cold daemon restart against its durable store.
+    Partition/bitrot/straggle events are in-process fault-plane verbs
+    with no cross-process equivalent, so the schedule is built with
+    partitions off and any residual non-kill event is skipped (and
+    counted, so seed⇒schedule determinism stays auditable).
+
+    Verdict demands: post-heal active+clean, byte-exact oracle reads,
+    a zero-inconsistency asok deep-scrub round, and a leak-free hedge
+    ledger (canceled == fired - won) summed across daemons."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ..cluster.faults import build_schedule
+    from ..cluster.procstart import ProcCluster
+    from ..ec import load_codec
+    from ..placement.osdmap import Pool
+
+    profile = _ec_profile(args, "auto")
+    size = load_codec(dict(profile),
+                      device=args.device).get_chunk_count()
+    if args.osds < size:
+        raise SystemExit(
+            f"--profile {args.profile} stores {size} chunks: need "
+            f"--osds >= {size}")
+    sched = build_schedule(args.seed, args.duration, args.osds,
+                           max_unavail=max_unavail, partitions=False)
+
+    data_dir = tempfile.mkdtemp(prefix="ctpu-thrash-proc-")
+    c = ProcCluster(data_dir, n_osds=args.osds, n_mons=args.mons,
+                    objectstore=args.objectstore,
+                    backend=args.backend, device=args.device)
+    applied: list[list] = []
+    skipped = 0
+    writes = {"ok": 0, "err": 0}
+    oracle: dict[str, bytes] = {}
+    try:
+        await c.start()
+        c.client.op_timeout = args.duration + args.settle + 60.0
+        pool_id = await c.client.create_pool(Pool(
+            id=2, name="thrash", size=size, min_size=args.k,
+            pg_num=args.pg_num, crush_rule=1, type="erasure",
+            ec_profile=profile))
+        await c.wait_active(60)
+
+        stop_ev = asyncio.Event()
+
+        async def writer(wid: int) -> None:
+            r = np.random.default_rng((args.seed << 8) ^ wid)
+            while not stop_ev.is_set():
+                name = f"obj-{int(r.integers(args.objects))}"
+                data = r.integers(0, 256, args.obj_size,
+                                  dtype=np.uint8).tobytes()
+                try:
+                    await c.client.write_full(pool_id, name, data)
+                except Exception:
+                    writes["err"] += 1
+                else:
+                    # full-object writes through ONE client serialize
+                    # per name, so last-acked == authoritative
+                    oracle[name] = data
+                    writes["ok"] += 1
+                await asyncio.sleep(0.05)
+
+        writers = [asyncio.get_running_loop().create_task(writer(i))
+                   for i in range(args.writers)]
+
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        for ev in sched:
+            delay = t0 + ev.t - loop.time()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            proc = c.procs.get(f"osd.{ev.target}")
+            if ev.kind == "kill" and proc is not None:
+                c.kill_osd(ev.target)
+                applied.append([round(ev.t, 2), "kill", ev.target])
+            elif ev.kind == "revive" and proc is None:
+                await c.revive_osd(ev.target)
+                applied.append([round(ev.t, 2), "revive", ev.target])
+            else:
+                skipped += 1
+        for i in range(args.osds):
+            if c.procs.get(f"osd.{i}") is None:
+                await c.revive_osd(i)
+
+        stop_ev.set()
+        await asyncio.gather(*writers, return_exceptions=True)
+
+        converged = True
+        try:
+            await c.wait_active(args.settle)
+        except asyncio.TimeoutError:
+            converged = False
+
+        byte_exact = converged
+        mismatches = 0
+        if converged:
+            for name, want in sorted(oracle.items()):
+                try:
+                    got = await c.client.read(pool_id, name)
+                except Exception:
+                    got = None
+                if got is None or bytes(got) != want:
+                    mismatches += 1
+            byte_exact = mismatches == 0
+
+        scrub_pgs = 0
+        scrub_inconsistent = 0
+        hedges = {"ec_hedges_fired": 0, "ec_hedges_won": 0,
+                  "ec_hedges_canceled": 0}
+        scrub_repaired = 0
+        if converged:
+            # one repair pass, then a round that must find NOTHING
+            # (the in-process thrasher's deep-scrub contract)
+            rep1 = await c.scrub_all()
+            scrub_repaired = sum(v["repaired"] for v in rep1.values())
+            rep = await c.scrub_all()
+            scrub_pgs = len(rep)
+            scrub_inconsistent = sum(len(v["inconsistent"])
+                                     for v in rep.values())
+            for i in range(args.osds):
+                if c.procs.get(f"osd.{i}") is None:
+                    continue
+                d = await c.asok(f"osd.{i}", "perf dump")
+                for key in hedges:
+                    hedges[key] += int(d.get(key, 0))
+        hedge_leak_free = (hedges["ec_hedges_canceled"]
+                           == hedges["ec_hedges_fired"]
+                           - hedges["ec_hedges_won"])
+
+        passed = (converged and byte_exact
+                  and scrub_inconsistent == 0 and hedge_leak_free
+                  and writes["ok"] > 0)
+        return {
+            "passed": passed,
+            "mode": "proc",
+            "backend": args.backend,
+            "objectstore": args.objectstore,
+            "seed": args.seed,
+            "duration_s": args.duration,
+            "n_osds": args.osds,
+            "ec_profile": args.profile,
+            "events": applied,
+            "events_scheduled": len(sched),
+            "events_skipped": skipped,
+            "writes": writes,
+            "oracle_objects": len(oracle),
+            "converged": converged,
+            "byte_exact": byte_exact,
+            "oracle_mismatches": mismatches,
+            "scrub_pgs": scrub_pgs,
+            "scrub_repaired_first_pass": scrub_repaired,
+            "scrub_inconsistent": scrub_inconsistent,
+            "hedges": hedges,
+            "hedge_leak_free": hedge_leak_free,
+            "daemon_cpu_s": round(c.cpu_seconds(), 2),
+        }
+    finally:
+        await c.stop()
+        shutil.rmtree(data_dir, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -115,6 +115,27 @@ latency p50/p99, kernel launches, calls of the rs byte API, batches and
 placement counters; the write step runs under torch.profiler for the
 card's busy share.
 
+Phase ``proc`` drives the cluster tier across processes as the same RBD
+deployment: a ProcCluster of 3 Paxos mon processes and 12 OSD daemon
+processes, each OSD with its own WalStore and its own CUDA context on the
+card (the launcher builds the kernels once; each daemon loads them before
+it boots), over the shared-memory ring messenger. 128 objects of 4 MiB on
+the EC pool and 16 on the replicated one go through the client's aio
+window and are read back; every OSD's pid must hold a context on the card
+(``nvidia-smi --query-compute-apps``); OSD 1's process is killed with
+SIGKILL, everything is read degraded and 16 more EC objects written; the
+OSD is revived (a cold start from its WalStore) and the cluster recovered
+to active+clean; the leader mon's process is killed, a quorum of 2 must
+form and create a pool; everything is read once more. After the stop every
+OSD's WalStore is mounted and every EC shard's hash_info CRCs held against
+the C++ core's CRC of its bytes. Then a second cluster of the same shape
+over TCP writes and reads back 32 objects. A line per step prints its
+GiB/s, op latency p50/p99, the kernel launches counted inside the daemons
+(their admin sockets) and in the launcher, and the OSDs' batch counters;
+encode batches must run on the writes and decode batches on the degraded
+read, none on the host engine and none failed; the start line prints the
+start-up seconds by role, the daemons' CPU seconds and resident memory.
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -126,6 +147,7 @@ from __future__ import annotations
 import asyncio
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -189,8 +211,9 @@ PL_CHECK_X, PL_ORACLE_X = 65_536, 10_000
 #: Bucket sizes of the rule kernel's edge maps: 1 and 2 lanes, either side
 #: of one and of two full groups of 32 lanes.
 PL_EDGE_SIZES = (1, 2, 31, 32, 33, 64, 65)
-#: Inputs a rule edge map takes: a ragged count of groups and of blocks.
-PL_EDGE_X = 4099
+#: Inputs a rule edge map takes: a ragged count of groups and of blocks;
+#: the numrep-256 map takes fewer (its plain version dominates the edges).
+PL_EDGE_X, PL_EDGE_X_WIDE = 1027, 259
 PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
 PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 
@@ -298,6 +321,52 @@ CL_TIMED = ("cluster_wb", "cluster_rb", "msg_b2048")
 #: The seeded thrash verdict (tools/thrash.py --seed 20260803: rs k=3,
 #: m=2 on 5 OSDs), cut to the 4 s of tests/test_fabric.py's proc thrash.
 CL_THRASH = ["--seed", "20260803", "--duration", "4"]
+
+#: Phase proc: phase cluster's RBD deployment as real daemons, the layout
+#: of Ceph's vstart.sh / qa/standalone (3 mons, OSDs on one host): 3 mon
+#: processes in a Paxos quorum and 12 OSD processes, each with its own
+#: WalStore and its own CUDA context on the card; the same two pools (32
+#: PGs each, EC 8+3 with a 4 KiB stripe unit and replicated size 3) and
+#: the same OSD override (osd_ec_cold_shape_bytes 0: every decode on K1).
+#: The mons keep the daemon's out interval (4 s), so OSD PR_KILLED is
+#: marked out while it is down and recovery moves data back after its
+#: revival. Over shm: PR_OBJECTS 4 MiB objects on EC and PR_REP_OBJECTS
+#: replicated through the client's aio window, PR_DEGRADED_WRITES EC
+#: writes while the OSD is down; then a second cluster of the same shape
+#: over TCP writes and reads PR_TCP_OBJECTS.
+PR_OSDS, PR_MONS = 12, 3
+#: The shm rings' arena (CEPH_TPU_SHM_ARENA_BYTES): a whole-object read's
+#: reply carries its 4 MiB twice (MOSDOpReply's ``data`` mirrors its first
+#: ``outs`` entry), more than the default 8 MiB arena takes in one
+#: message; 32 MiB holds three such replies.
+PR_SHM_ARENA_BYTES = 32 << 20
+PR_OBJECTS, PR_REP_OBJECTS, PR_DEGRADED_WRITES = 128, 16, 16
+PR_TCP_OBJECTS = 32
+PR_KILLED = 1
+PR_AFTER_FAILOVER_POOL = 3
+#: Seconds every daemon may take from spawn to its .ready marker (15
+#: processes import torch and create a CUDA context at once), a client op,
+#: a quorum to form and the cluster to become active+clean.
+PR_SPAWN_TIMEOUT_S, PR_OP_TIMEOUT_S = 180.0, 120.0
+PR_QUORUM_TIMEOUT_S, PR_CLEAN_TIMEOUT_S = 120.0, 300.0
+#: The client's op timeout while it polls the quorum after the leader's
+#: kill: a request that a peon forwards to the dead leader is lost, and
+#: the poll re-sends after this many seconds instead of the op timeout.
+PR_QUORUM_POLL_S = 2.0
+#: WalStore's checkpoint threshold on the phase's OSDs (the
+#: walstore_compact_bytes option; default 64 MiB). A checkpoint encodes and
+#: zlib-compresses the whole store while it holds the store lock, and at
+#: ~0.5 GiB an OSD that stalls its reactor past the heartbeat grace (the
+#: mon then marks it down, again and again): above what an OSD takes here,
+#: no checkpoint runs in the phase and a revival replays its WAL.
+PR_WAL_COMPACT_BYTES = 8 << 30
+#: Fresh interpreters that mount the OSDs' WalStores after the stop (the
+#: shm cluster's WALs hold ~0.5 GiB an OSD; the TCP cluster's are scanned
+#: in the launcher).
+PR_SCAN_WORKERS = 6
+#: The OSD counters a step's line sums over the daemons (perf dump).
+PR_COUNTERS = ("ec_batches", "ec_decode_batches", "ec_decode_cold_host",
+               "ec_batch_failures", "ec_hedges_fired", "ec_hedges_won")
 
 
 def emit(obj: dict) -> None:
@@ -1032,7 +1101,8 @@ def placement_phase(dev) -> dict:
         erule = ecomp.compile_rule(ruleno, numrep)
         ew_t = t32(np.full(ecomp.max_devices, 0x10000, dtype=np.uint32)
                    if ew is None else ew)
-        ex_t = t32(xrng.integers(0, 2**32, PL_EDGE_X, dtype=np.uint32))
+        ex_t = t32(xrng.integers(0, 2**32, PL_EDGE_X if numrep < 256
+                                 else PL_EDGE_X_WIDE, dtype=np.uint32))
         pd = zero_count()
         want = bulk.rule_rows_plain(ecomp, ew_t, ex_t, erule, numrep, pd)
         widths = sorted({bulk.group_width(ecomp.widest(erule.take), n, lanes)
@@ -1051,6 +1121,7 @@ def placement_phase(dev) -> dict:
         edge_groups[ename] = widths
         errs[f"edge_{ename}"] = err
     emit({"phase": "placement_rule_edges", "inputs": PL_EDGE_X,
+          "inputs_numrep_256": PL_EDGE_X_WIDE,
           "groups": edge_groups, "draws_equal": True,
           "max_abs_err": max(errs[f"edge_{e}"] for e in edge_groups)})
 
@@ -2904,6 +2975,490 @@ def cluster_phase(card: str, rng, device=None, objects: int = CL_OBJECTS,
             "timed": timed}
 
 
+def pr_rss_bytes(pid: int) -> int:
+    """Resident bytes of a live process (/proc VmRSS); 0 once it is gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def pr_compute_apps() -> dict[int, str]:
+    """pid -> used memory of every process holding a context on the card,
+    as ``nvidia-smi --query-compute-apps`` lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    apps = {}
+    for line in out.splitlines():
+        if line.strip():
+            pid, mem = (f.strip() for f in line.split(",", 1))
+            apps[int(pid)] = mem
+    return apps
+
+
+class PrSteps:
+    """The proc phase's ledger for one ProcCluster, read at each step's
+    end: every live OSD daemon's kernel launches (its admin socket's
+    ``kernel launches``) and the PR_COUNTERS of its ``perf dump``, the
+    launcher's own launches (the client's placement, K4), each as the
+    step's delta. A daemon revived under a new pid counts from 0."""
+
+    def __init__(self, c, card: str, transport: str):
+        from ceph_tpu_torch import kernels
+
+        self.c, self.card, self.transport = c, card, transport
+        self.kernels = kernels
+        self.lines: dict[str, dict] = {}
+        #: osd id -> its daemons' launches over the phase, by kernel
+        self.by_osd: dict[int, dict[str, int]] = {}
+        self._last = None
+
+    async def _read(self) -> dict:
+        if self.c.device.type == "cuda":
+            torch.cuda.synchronize()
+        daemons = {}
+        for i in range(self.c.n_osds):
+            proc = self.c.procs.get(f"osd.{i}")
+            if proc is None or proc.poll() is not None:
+                continue
+            kl = await self.c.asok(f"osd.{i}", "kernel launches")
+            perf = await self.c.asok(f"osd.{i}", "perf dump")
+            daemons[i] = (kl["pid"], kl["launches"],
+                          {k: int(perf[k]) for k in PR_COUNTERS})
+        return {"t": time.perf_counter(), "daemons": daemons,
+                "launcher": {k.name: k.launches
+                             for k in self.kernels.KERNELS}}
+
+    async def start(self) -> None:
+        """Every count to 0 (launcher and daemons) just before the phase
+        drives its path."""
+        if self.c.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.kernels.reset_counts()
+        for i in range(self.c.n_osds):
+            await self.c.asok(f"osd.{i}", "kernel launches", reset=True)
+        self._last = await self._read()
+
+    async def mark(self, step: str, **extra) -> dict:
+        now, last = await self._read(), self._last
+        launches = {n: v - last["launcher"][n]
+                    for n, v in now["launcher"].items()}
+        daemon_launches = {n: 0 for n in launches}
+        counters = {k: 0 for k in PR_COUNTERS}
+        for i, (pid, kl, perf) in now["daemons"].items():
+            pid0, kl0, perf0 = last["daemons"].get(i, (None, {}, {}))
+            same = pid0 == pid
+            mine = self.by_osd.setdefault(i, {n: 0 for n in kl})
+            for n, v in kl.items():
+                d = v - (kl0.get(n, 0) if same else 0)
+                launches[n] += d
+                daemon_launches[n] += d
+                mine[n] += d
+            for k, v in perf.items():
+                counters[k] += v - (perf0.get(k, 0) if same else 0)
+        line = {"phase": "proc", "transport": self.transport, "step": step,
+                "seconds": now["t"] - last["t"],
+                "osdmap_epoch": self.c.client.osdmap.epoch,
+                "launches": launches,
+                "daemon_launches": daemon_launches, **counters, **extra,
+                "card": self.card}
+        self.lines[step] = line
+        self._last = now
+        emit(line)
+        return line
+
+    def totals(self) -> dict:
+        out = {k.name: 0 for k in self.kernels.KERNELS}
+        for line in self.lines.values():
+            for n, v in line["launches"].items():
+                out[n] += v
+        return out
+
+
+async def pr_on_card(c) -> dict:
+    """Every OSD daemon of ``c`` holds a CUDA context on this card: its
+    pid among ``nvidia-smi``'s compute apps where that list names the
+    processes by their pids, and in any case its own report over its
+    admin socket (``device status``: context initialised, the card's
+    name, the card memory it holds). -> the line's fields."""
+    name = torch.cuda.get_device_name(0)
+    apps = pr_compute_apps()
+    osds = {f"osd.{i}": c.procs[f"osd.{i}"].pid for i in range(c.n_osds)}
+    status = {n: await c.asok(n, "device status") for n in osds}
+    for n, st in status.items():
+        check(st["pid"] == osds[n] and st["cuda_initialized"]
+              and st.get("name") == name,
+              f"proc: {n} holds no CUDA context on {name}: {st}")
+    listed = [n for n, pid in osds.items() if pid in apps]
+    if any(pid in apps for pid in osds.values()):
+        check(len(listed) == len(osds),
+              f"proc: {sorted(set(osds) - set(listed))} missing from the "
+              f"compute apps {apps}")
+    return {"compute_apps": {str(pid): mem for pid, mem in apps.items()},
+            "osd_pids_in_compute_apps": len(listed),
+            "osd_memory_reserved": {n: st["memory_reserved"]
+                                    for n, st in status.items()},
+            "card_free_bytes": min(st["device_free"]
+                                   for st in status.values())}
+
+
+async def pr_quorum(client, n: int, timeout: float) -> list:
+    """Poll ``quorum_status`` until ``n`` ranks sit in the quorum (the
+    reference's ``wait_quorum``); -> the quorum. Each poll waits at most
+    the client's op timeout for its reply."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            _, _, outb = await client.mon_command(["quorum_status"])
+            quorum = json.loads(outb)["quorum"]
+            if len(quorum) == n:
+                return quorum
+        except (IOError, asyncio.TimeoutError):
+            pass
+        check(time.perf_counter() < deadline,
+              f"proc: no quorum of {n} within {timeout} s")
+        await asyncio.sleep(0.1)
+
+
+async def pr_active(c, timeout: float) -> None:
+    """ProcCluster.wait_active, failing with what each OSD last reported
+    (map epoch, PG states, report age) against the client's map."""
+    try:
+        await c.wait_active(timeout)
+    except asyncio.TimeoutError:
+        m = c.client.osdmap
+        now = time.time()
+        seen = {i: {"epoch": r["epoch"], "pgs": r["pgs"],
+                    "age_s": round(now - r["ts"], 2)}
+                for i, r in sorted(c.reports.items())}
+        for log in sorted(Path(c.data_dir).glob("*.log")):
+            tail = log.read_text(errors="replace").splitlines()[-40:]
+            if tail:
+                print(f"--- {log.name}", *tail, sep="\n", file=sys.stderr)
+        raise RuntimeError(
+            f"proc: not active within {timeout} s: map epoch "
+            f"{m.epoch if m else None}, up "
+            f"{[i for i, o in enumerate(m.osds) if o.up] if m else None}, "
+            f"pg_temp {len(m.pg_temp) if m else None}, reports "
+            f"{seen}") from None
+
+
+async def pr_clean(c, timeout: float) -> None:
+    """active+clean over processes: every live OSD reports every PG
+    active on the current epoch and the map pins no pg_temp."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        await pr_active(c, max(1.0, deadline - time.perf_counter()))
+        await c._refresh_map()
+        if not c.client.osdmap.pg_temp:
+            await pr_active(c, max(1.0, deadline - time.perf_counter()))
+            return
+        check(time.perf_counter() < deadline, "proc: pg_temp never cleared")
+        await asyncio.sleep(0.1)
+
+
+def pr_startup(c) -> dict:
+    """Start-up seconds by role: median and max of each part over the
+    role's daemons (import of torch and the port, CUDA context, kernel
+    load), as the daemons wrote them."""
+    by_role: dict[str, dict[str, list]] = {}
+    for name, rec in c.startup().items():
+        role = by_role.setdefault(rec["role"], {})
+        for part in ("import_s", "cuda_context_s", "kernel_load_s"):
+            if rec.get(part) is not None:
+                role.setdefault(part, []).append(rec[part])
+    return {role: {part: {"median": statistics.median(v), "max": max(v),
+                          "n": len(v)} for part, v in parts.items()}
+            for role, parts in by_role.items()}
+
+
+def pr_host(c) -> dict:
+    """The daemons' CPU seconds (live and exited) and resident bytes."""
+    pids = [p.pid for p in c.procs.values()
+            if p is not None and p.poll() is None]
+    rss = [pr_rss_bytes(pid) for pid in pids]
+    return {"daemon_cpu_s": c.cpu_seconds(), "daemons": len(pids),
+            "daemon_rss_bytes": sum(rss), "daemon_rss_max_bytes": max(rss),
+            "launcher_rss_bytes": pr_rss_bytes(os.getpid())}
+
+
+def pr_scan(data_dir: str, osds: list[int], su: int) -> dict:
+    """Mount the WalStores of ``osds`` (after the stop) with the port's
+    store: every EC shard stored there (strays of a re-placement too)
+    must carry hash_info CRCs equal to the C++ core's CRC32C of its
+    cells. -> {"held": [[osd, cid, oid hex], ...], "stored", "cells"}."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch import store as store_mod
+    from ceph_tpu_torch.cluster.pg import ATTR_HINFO, META_OID
+    from ceph_tpu_torch.cluster.stripe import dec_hinfo
+
+    held, cells = [], 0
+    for i in osds:
+        st = store_mod.create("walstore", f"{data_dir}/osd.{i}")
+        try:
+            for cid in st.list_collections():
+                if not cid.startswith(f"{CL_EC_POOL}."):
+                    continue
+                for oid in st.list_objects(cid):
+                    if oid == META_OID:
+                        continue
+                    data = np.frombuffer(st.read(cid, oid), np.uint8)
+                    want = dec_hinfo(st.getattr(cid, oid, ATTR_HINFO))
+                    got = native.crc32c_batch(data.reshape(-1, su))
+                    check(np.array_equal(got, want),
+                          f"proc: osd.{i} {cid}/{oid!r} hash_info differs "
+                          "from the C++ core's CRC of its bytes")
+                    held.append([i, cid, oid.hex()])
+                    cells += len(got)
+        finally:
+            st.umount()
+    return {"held": held, "stored": len(held), "cells": cells}
+
+
+def pr_shards(data_dir: str, placed: dict, su: int, workers: int) -> dict:
+    """Every OSD's WalStore checked by ``pr_scan`` after the stop, in the
+    launcher or, with ``workers`` > 1, the OSDs split over that many fresh
+    interpreters (a mount replays the store's WAL in Python); then each
+    EC shard that the final map places on an OSD must be among those it
+    holds."""
+    if workers > 1:
+        code = ("import json, sys, chip_smoke; print(json.dumps("
+                "chip_smoke.pr_scan(sys.argv[1], json.loads(sys.argv[2]), "
+                "int(sys.argv[3]))))")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, data_dir,
+             json.dumps(list(range(PR_OSDS))[w::workers]), str(su)],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for w in range(workers)]
+        results = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0,
+                  f"proc shard scan failed:\n{err[-4000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    else:
+        results = [pr_scan(data_dir, list(range(PR_OSDS)), su)]
+    held, stored, cells = set(), 0, 0
+    for res in results:
+        held.update((i, cid, oid) for i, cid, oid in res["held"])
+        stored += res["stored"]
+        cells += res["cells"]
+    placed_n = 0
+    for name, ((pool, ps), acting) in placed.items():
+        for shard, osd in enumerate(acting):
+            check((osd, f"{pool}.{ps}s{shard}", name.encode().hex()) in held,
+                  f"proc: shard {shard} of {name} missing on osd.{osd}")
+            placed_n += 1
+    return {"placed_shards": placed_n, "stored_shards": stored,
+            "cells_crc_checked": cells}
+
+
+async def pr_cluster(data_dir: str, backend: str, device, card: str,
+                     rng, objects: int, rep_objects: int,
+                     degraded_writes: int, chaos: bool,
+                     scan_workers: int = PR_SCAN_WORKERS) -> dict:
+    """One ProcCluster of the proc phase (see the PR_* constants) on one
+    event loop: start, pools, writes and a read-back; with ``chaos`` the
+    kill, degraded read and writes, revival and recovery, the leader
+    mon's kill, a pool created after the failover and a last read. After
+    the stop every EC shard is checked on disk (``pr_shards``)."""
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.cluster.procstart import ProcCluster
+    from ceph_tpu_torch.placement.osdmap import Pool
+
+    c = ProcCluster(data_dir, n_osds=PR_OSDS, n_mons=PR_MONS,
+                    backend=backend, spawn_timeout=PR_SPAWN_TIMEOUT_S,
+                    osd_conf={"osd_ec_cold_shape_bytes":
+                              CL_COLD_SHAPE_BYTES,
+                              "walstore_compact_bytes":
+                              PR_WAL_COMPACT_BYTES}, device=device)
+    steps = PrSteps(c, card, backend)
+    out = {"steps": steps}
+    t0 = time.perf_counter()
+    try:
+        await c.start()
+        start_s = time.perf_counter() - t0
+        c.client.op_timeout = PR_OP_TIMEOUT_S
+        quorum = await pr_quorum(c.client, PR_MONS, PR_QUORUM_TIMEOUT_S)
+        await steps.start()
+        await c.client.create_pool(Pool(
+            id=CL_REP_POOL, name="rbd", size=3, min_size=2,
+            pg_num=CL_PG_NUM, crush_rule=0))
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="rbd_data", size=11, min_size=8,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await pr_active(c, PR_CLEAN_TIMEOUT_S)
+        warmed = await c.client._placement.prewarm(
+            c.client.osdmap, [CL_REP_POOL, CL_EC_POOL])
+        check(warmed == 2 * CL_PG_NUM, f"proc prewarm {warmed}")
+        await steps.mark("start", start_s=start_s, quorum=quorum,
+                         startup=pr_startup(c), prewarmed_pgids=warmed,
+                         **pr_host(c))
+
+        model = {(CL_EC_POOL, f"rbd_data.{i:016x}"): rng.bytes(
+            CL_OBJECT_BYTES) for i in range(objects)}
+        model.update({(CL_REP_POOL, f"rbd_rep.{i:016x}"): rng.bytes(
+            CL_OBJECT_BYTES) for i in range(rep_objects)})
+
+        def writes(names):
+            return [(p, n, [M.osd_op("writefull", data=model[(p, n)])],
+                     None) for p, n in names]
+
+        def reads():
+            return [(p, n, [M.osd_op("read", offset=0, length=-1)],
+                     bytes(d)) for (p, n), d in model.items()]
+
+        def nbytes():
+            return sum(len(d) for d in model.values())
+
+        res = await cl_ops(c.client, writes(list(model)))
+        cl_check(res, f"proc {backend} write")
+        extra = {}
+        if c.device.type == "cuda":
+            extra = await pr_on_card(c)
+        line = await steps.mark("write", **cl_traffic(res, nbytes()),
+                                **extra, **pr_host(c))
+        check(line["ec_batches"] > 0, f"proc {backend} write: no EC batch")
+        res = await cl_ops(c.client, reads())
+        cl_check(res, f"proc {backend} read")
+        await steps.mark("read", **cl_traffic(res, nbytes()))
+        if chaos:
+            c.kill_osd(PR_KILLED)
+            await c.wait_down(PR_KILLED, 60)
+            await steps.mark("kill", killed=PR_KILLED)
+            res = await cl_ops(c.client, reads())
+            cl_check(res, "proc degraded read")
+            line = await steps.mark("degraded_read",
+                                    **cl_traffic(res, nbytes()))
+            check(line["ec_decode_batches"] > 0,
+                  "proc degraded read: no decode batch")
+            late = [(CL_EC_POOL, f"rbd_data.late.{i:04x}")
+                    for i in range(degraded_writes)]
+            for key in late:
+                model[key] = rng.bytes(CL_OBJECT_BYTES)
+            res = await cl_ops(c.client, writes(late))
+            cl_check(res, "proc degraded write")
+            await steps.mark("degraded_write", **cl_traffic(
+                res, len(late) * CL_OBJECT_BYTES))
+            t_rec = time.perf_counter()
+            await c.revive_osd(PR_KILLED)
+            await pr_clean(c, PR_CLEAN_TIMEOUT_S)
+            await steps.mark("recovery",
+                             recovery_s=time.perf_counter() - t_rec,
+                             startup=c.startup()[f"osd.{PR_KILLED}"])
+            leader = c.leader_mon_rank()
+            t_fail = time.perf_counter()
+            c.kill_mon(leader)
+            c.client.op_timeout = PR_QUORUM_POLL_S
+            quorum = await pr_quorum(c.client, PR_MONS - 1,
+                                     PR_QUORUM_TIMEOUT_S)
+            quorum_s = time.perf_counter() - t_fail
+            c.client.op_timeout = PR_OP_TIMEOUT_S
+            new_leader = c.leader_mon_rank()
+            check(new_leader != leader,
+                  f"proc: mon.{leader} killed and still the leader")
+            pool = await c.client.create_pool(Pool(
+                id=PR_AFTER_FAILOVER_POOL, name="after_failover", size=3,
+                min_size=2, pg_num=8, crush_rule=0))
+            check(pool == PR_AFTER_FAILOVER_POOL
+                  and pool in c.client.osdmap.pools,
+                  f"proc: pool created after the failover is {pool}")
+            await steps.mark("mon_failover", killed_mon=leader,
+                             new_leader=new_leader, quorum=quorum,
+                             quorum_s=quorum_s,
+                             pool_create_s=time.perf_counter() - t_fail
+                             - quorum_s)
+            res = await cl_ops(c.client, reads())
+            cl_check(res, "proc read after failover")
+            await steps.mark("read_after", **cl_traffic(res, nbytes()))
+        su = ECB_SU
+        final = c.client.osdmap
+        out["placed"] = {}
+        for (pool, name) in model:
+            if pool == CL_EC_POOL:
+                pgid = final.object_to_pg(pool, name.encode())
+                out["placed"][name] = (pgid, list(
+                    final.pg_to_up_acting_osds(pgid)[0]))
+        out["host"] = pr_host(c)
+    finally:
+        t_stop = time.perf_counter()
+        await c.stop()
+        out["stop_s"] = time.perf_counter() - t_stop
+    out["shards"] = pr_shards(data_dir, out["placed"], su,
+                              scan_workers if chaos else 1)
+    return out
+
+
+def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
+               rep_objects: int = PR_REP_OBJECTS,
+               degraded_writes: int = PR_DEGRADED_WRITES,
+               tcp_objects: int = PR_TCP_OBJECTS,
+               scan_workers: int = PR_SCAN_WORKERS) -> dict:
+    """The cluster tier across processes with an RBD deployment's
+    traffic (see the PR_* constants): a ProcCluster of 3 mon and 12 OSD
+    daemon processes on ``device`` (the card when None, as a user leaves
+    it) over shm, every count set to 0 at its start; writes, a read-back,
+    kill -9 of an OSD, degraded reads and writes, its revival and
+    recovery, kill -9 of the leader mon and a pool created by the new
+    quorum, a last read; every EC shard's hash_info against the C++ core
+    after the stop. Then a second cluster over TCP writes and reads
+    ``tcp_objects``. A line per step -> {"lines": by transport and step,
+    "launches": the phase's launches by kernel}."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_proc-")
+    ring_dir = os.path.join(root, "rings")
+    os.mkdir(ring_dir)
+    saved = {k: os.environ.get(k) for k in ("CEPH_TPU_SHM_DIR",
+                                             "CEPH_TPU_SHM_ARENA_BYTES")}
+    os.environ["CEPH_TPU_SHM_DIR"] = ring_dir
+    os.environ["CEPH_TPU_SHM_ARENA_BYTES"] = str(PR_SHM_ARENA_BYTES)
+    lines, launches = {}, None
+    try:
+        for backend, n, n_rep, n_late, chaos in (
+                ("shm", objects, rep_objects, degraded_writes, True),
+                ("tcp", tcp_objects, 0, 0, False)):
+            t0 = time.perf_counter()
+            d = os.path.join(root, backend)
+            os.mkdir(d)
+            out = asyncio.run(pr_cluster(d, backend, device, card, rng, n,
+                                         n_rep, n_late, chaos, scan_workers))
+            steps = out["steps"]
+            for step, line in steps.lines.items():
+                for key in ("ec_decode_cold_host", "ec_batch_failures"):
+                    check(line[key] == 0,
+                          f"proc {backend} {step}: {key} {line[key]}")
+            totals = steps.totals()
+            launches = totals if launches is None else {
+                k: launches[k] + v for k, v in totals.items()}
+            lines[backend] = steps.lines
+            emit({"phase": "proc_cluster", "transport": backend,
+                  "seconds": time.perf_counter() - t0,
+                  "stop_s": out["stop_s"], **out["shards"],
+                  "launches": totals,
+                  "launches_by_osd": {f"osd.{i}": kl for i, kl in
+                                      sorted(steps.by_osd.items())},
+                  **out["host"], "card": card})
+            shutil.rmtree(d, ignore_errors=True)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "proc_launches", **launches})
+    return {"lines": lines, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3184,6 +3739,16 @@ def main() -> int:
         check(cl["launches"][key] > 0,
               f"the cluster phase launched {key} {cl['launches'][key]} times")
     seconds["cluster"] = time.perf_counter() - t0
+
+    # ---- phase 13: the cluster tier across processes (3 Paxos mons, 12
+    # OSD daemons on the card, each with its own CUDA context) over shm,
+    # then TCP
+    t0 = time.perf_counter()
+    pr = proc_phase(smi.splitlines()[0], rng)
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(pr["launches"][key] > 0,
+              f"the proc phase launched {key} {pr['launches'][key]} times")
+    seconds["proc"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -3204,6 +3769,7 @@ def main() -> int:
         paths["codecs"] = cd["launches"][name]
         paths["msg"] = wire["launches"][name]
         paths["cluster"] = cl["launches"][name]
+        paths["proc"] = pr["launches"][name]
         return paths
 
     table = [
@@ -3254,7 +3820,8 @@ def main() -> int:
              timed["straw2_65536"]["max_abs_err"]),
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["straw2"],
-                              "cluster": cl["launches"]["straw2"]},
+                              "cluster": cl["launches"]["straw2"],
+                              "proc": pr["launches"]["straw2"]},
          "shapes": shapes("straw2_config5", "straw2_65536")},
         {"name": "crush_rule", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crush_rule.cu",
@@ -3269,7 +3836,8 @@ def main() -> int:
                for r in PL_RULES)),
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["crush_rule"],
-                              "cluster": cl["launches"]["crush_rule"]},
+                              "cluster": cl["launches"]["crush_rule"],
+                              "proc": pr["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
                             for s in ("full", "65536", "64")))},
         {"name": "gf2_xor", "route": "cuda",
@@ -3281,7 +3849,8 @@ def main() -> int:
                             timed["gf2_decode"]["max_abs_err"]),
          "library_ms": None,
          "launches_by_path": {"codecs": cd["launches"]["gf2_xor"],
-                              "cluster": cl["launches"]["gf2_xor"]},
+                              "cluster": cl["launches"]["gf2_xor"],
+                              "proc": pr["launches"]["gf2_xor"]},
          "shapes": shapes("gf2_encode", "gf2_decode")},
     ]
     emit({"kernels": table})

@@ -1,16 +1,12 @@
 """The cases of ``tests/test_balancer_config.py`` on the port
 (``ceph_tpu_torch``), each cluster on ``device="cpu"`` (the kernels'
 plain versions), copied with only their imports and device changed.
-``test_config_survives_mon_failover`` needs a mon quorum
-(``cluster/paxos_mon.py``, ROADMAP §1 item 4); in its place a case shows
-that ``n_mons > 1`` raises until then. The reference's own words follow.
+The reference's own words follow.
 
 Balancer (upmap optimizer, mgr balancer-module role) and the
 central config DB (ConfigMonitor / MConfig push role)."""
 import asyncio
 import os
-
-import pytest
 
 from ceph_tpu_torch.cluster import TestCluster, balancer
 from ceph_tpu_torch.placement import crushmap as cm
@@ -143,12 +139,31 @@ def test_config_push_reaches_all_osds(tmp_path):
     run(t())
 
 
-def test_mon_quorum_raises_until_paxos_mon_is_ported():
-    """The reference's ``test_config_survives_mon_failover`` needs a mon
-    quorum (``n_mons=3``), which runs on ``cluster/paxos_mon.py``: the
-    port has not taken it yet (ROADMAP §1 item 4), and says so."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TestCluster(n_osds=3, n_mons=3, device="cpu")
+def test_config_survives_mon_failover():
+    """The config DB mirrors to peer mons, so a new leader after
+    failover still serves it to (re)booting daemons."""
+    async def t():
+        c = TestCluster(n_osds=3, n_mons=3, device="cpu")
+        await c.start()
+        await c.wait_quorum(10)
+        leader = c.mon.rank
+        await c.mon.handle("client.x", __import__(
+            "ceph_tpu_torch.cluster.messages", fromlist=["M"]).MConfigSet(
+                who="osd", key="osd_subop_timeout", value="9.0"))
+        await _until(lambda: all(
+            o.conf.get("osd_subop_timeout") == 9.0 for o in c.osds))
+        await c.kill_mon(leader)
+        await c.wait_quorum(10)
+        assert c.mon.config_db[("osd", "osd_subop_timeout")] == "9.0"
+        # a rebooting OSD gets the DB from the NEW leader
+        await c.kill_osd(0)
+        await c.wait_down(0)
+        await c.revive_osd(0)
+        await _until(
+            lambda: c.osds[0].conf.get("osd_subop_timeout") == 9.0)
+        await c.stop()
+
+    run(t())
 
 
 def test_bad_config_value_rejected_quietly():

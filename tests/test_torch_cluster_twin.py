@@ -218,9 +218,32 @@ def test_thrash_runner_schedule_only_equals_the_reference(capsys):
 
 @pytest.mark.parametrize("flag, item", [("--chip-loss", "item 6"),
                                         ("--proc", "item 4")])
-def test_thrash_runner_refuses_what_the_port_lacks(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _thrash(["--seed", "1", "--device", "cpu", flag])
+def test_thrash_runner_refuses_what_the_port_lacks(flag, item, monkeypatch,
+                                                   capsys):
+    """``--chip-loss`` raises until ROADMAP §1 item 6 lands. Item 4 (the
+    process tier) has landed: ``--proc`` is no longer refused and goes to
+    the process-tier arm (``_run_proc``, driven for real by
+    ``test_torch_fabric_cluster.py``), never to the in-process one."""
+    from ceph_tpu_torch.tools import thrash
+
+    if flag == "--chip-loss":
+        with pytest.raises(NotImplementedError, match=item):
+            _thrash(["--seed", "1", "--device", "cpu", flag])
+        return
+    seen = []
+
+    async def run_proc(args, max_unavail):
+        seen.append((args.proc, args.device, max_unavail))
+        return {"passed": True}
+
+    async def run(args, max_unavail):
+        raise AssertionError("--proc went to the in-process arm")
+
+    monkeypatch.setattr(thrash, "_run_proc", run_proc)
+    monkeypatch.setattr(thrash, "_run", run)
+    assert _thrash(["--seed", "1", "--device", "cpu", flag]) == 0
+    assert seen == [(True, "cpu", 2)]
+    assert json.loads(capsys.readouterr().out) == {"passed": True}
 
 
 def test_cluster_phase_on_the_cpu(monkeypatch):

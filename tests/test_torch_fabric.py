@@ -2,7 +2,8 @@
 and latency histograms (``utils.lathist``): the ring and histogram units of
 ``test_fabric.py`` on the port, a port ShmMessenger and a JAX one talking
 in both directions, and histograms equal to the JAX package's on the same
-samples. Ring files live under ``tmp_path`` (CEPH_TPU_SHM_DIR); doorbell
+samples; and NetBus following the "mon" alias to its new holder. Ring
+files live under ``tmp_path`` (CEPH_TPU_SHM_DIR); doorbell
 sockets sit in Linux's abstract namespace, so no path length or leftover
 file is at stake. Tolerance: exact equality. Every wait is bounded."""
 import asyncio
@@ -386,3 +387,47 @@ def test_delay_and_partition_on_each_transport(kind):
             await close()
 
     run(body())
+
+
+@pytest.mark.parametrize("backend", ["tcp", "shm"])
+def test_netbus_follows_the_mon_alias_to_its_new_holder(backend, tmp_path):
+    """The "mon" alias moves between LIVE processes when a new leader is
+    elected. A sender that reached the old holder must reach the new
+    one next: the old holder is alive, so a send to it succeeds and is
+    dropped there (the entity is gone), and the port re-reads the book
+    entry on every send (the reference cached it until a send failed, so
+    a client that cached a peon's address mid-election timed out every
+    mon op after it, ROADMAP §3)."""
+    from ceph_tpu_torch.msg.netbus import NetBus
+
+    async def t():
+        book = str(tmp_path / "book")
+        old, new, client = (NetBus(book, backend=backend)
+                            for _ in range(3))
+        for bus in (old, new, client):
+            await bus.start()
+        got = {"old": [], "new": []}
+
+        def sink(key):
+            async def handle(src, msg):
+                got[key].append(msg.epoch)
+            return handle
+
+        async def until(cond):
+            while not cond():
+                await asyncio.sleep(0.01)
+
+        try:
+            old.register("mon", sink("old"))
+            await client.send("client.0", "mon", M.MPing(osd=0, epoch=1))
+            await asyncio.wait_for(until(lambda: got["old"]), 10)
+            old.unregister("mon")  # the old leader loses the election
+            new.register("mon", sink("new"))
+            await client.send("client.0", "mon", M.MPing(osd=0, epoch=2))
+            await asyncio.wait_for(until(lambda: got["new"]), 10)
+            assert got == {"old": [1], "new": [2]}
+        finally:
+            for bus in (old, new, client):
+                await bus.close()
+
+    run(t())

@@ -1,33 +1,50 @@
-"""The cluster case of ``tests/test_fabric.py`` on the port
-(``ceph_tpu_torch``): one EC write/read cycle, byte-exact across the
-cluster's messenger backends, every daemon on ``device="cpu"`` (the
-kernels' plain versions).
-
-The reference runs the TCP and shm arms as a ``ProcCluster`` of daemon
-processes (``cluster/procstart.py``), which the port has not taken yet
-(ROADMAP §1 item 4). Here the same daemons (mon, six OSDs, client) run
-in one process, each on its own ``NetBus`` over the backend, so every
-message between them crosses a real TCP socket or shm ring.
-Tolerance: exact, as in the reference.
+"""The process-tier cases of ``tests/test_fabric.py`` on the port
+(``ceph_tpu_torch``): the seeded thrash over a ``ProcCluster`` of daemon
+processes on each messenger backend, and one EC write/read cycle
+byte-exact across the cluster's messenger backends (LocalBus in one
+process, TCP and shm between daemon processes). Every daemon runs on
+``device="cpu"`` (the kernels' plain versions). Copied with only their
+imports and device changed, and the thrash's outer deadline cut from 300
+s to 200 s. Tolerance: exact, as in the reference.
 """
+import argparse
 import asyncio
 
 import numpy as np
+import pytest
 import torch
 
-from ceph_tpu_torch.cluster.client import RadosClient
-from ceph_tpu_torch.cluster.mon import MonLite
-from ceph_tpu_torch.cluster.osd import OSDLite
+from ceph_tpu_torch.cluster.procstart import ProcCluster
 from ceph_tpu_torch.cluster.vstart import TestCluster
-from ceph_tpu_torch.msg.netbus import NetBus
 from ceph_tpu_torch.placement.osdmap import Pool
+from ceph_tpu_torch.tools import thrash
 
 # one intra-op thread: the plain versions are small tensor ops
 torch.set_num_threads(1)
 
 
 def run(coro, timeout=240):
-    asyncio.run(asyncio.wait_for(coro, timeout))
+    return asyncio.run(asyncio.wait_for(coro, timeout))
+
+
+@pytest.mark.parametrize("backend", ["tcp", "shm"])
+def test_proccluster_seeded_thrash_converges(backend, tmp_path,
+                                             monkeypatch):
+    """~5 s seeded thrash over REAL daemon processes on each messenger
+    backend: post-heal active+clean, byte-exact oracle, a clean
+    deep-scrub round, leak-free hedge ledger."""
+    monkeypatch.setenv("CEPH_TPU_SHM_DIR", str(tmp_path))
+    args = argparse.Namespace(
+        seed=20260803, duration=4.0, osds=5, mons=1, k=3, m=2,
+        profile="rs", pg_num=8, objects=6, obj_size=24 << 10,
+        writers=2, settle=90.0, backend=backend,
+        objectstore="walstore", proc=True, device="cpu")
+    verdict = run(thrash._run_proc(args, max_unavail=2), timeout=200)
+    assert verdict["converged"], verdict
+    assert verdict["byte_exact"], verdict
+    assert verdict["scrub_inconsistent"] == 0, verdict
+    assert verdict["hedge_leak_free"], verdict["hedges"]
+    assert verdict["passed"], verdict
 
 
 def test_ec_write_read_byte_exact_across_backends(tmp_path, monkeypatch):
@@ -54,42 +71,23 @@ def test_ec_write_read_byte_exact_across_backends(tmp_path, monkeypatch):
         finally:
             await c.stop()
 
-    async def netbus(backend):
-        book = str(tmp_path / backend)
-        buses = [NetBus(book, backend=backend) for _ in range(8)]
-        for b in buses:
-            await b.start()
-        mon = MonLite(buses[0], 6)
-        osds = [OSDLite(buses[1 + i], i, device="cpu") for i in range(6)]
-        client = RadosClient(buses[7], device="cpu")
+    async def proc(backend):
+        d = tmp_path / backend
+        d.mkdir()
+        c = ProcCluster(str(d), n_osds=6, objectstore="memstore",
+                        backend=backend, device="cpu")
+        await c.start()
         try:
-            await mon.start()
-            for o in osds:
-                await o.start()
-            await client.connect()
-            await client.create_pool(Pool(**pool))
-
-            async def active():
-                while not (all(o.osdmap is not None
-                               and o.osdmap.epoch == mon.osdmap.epoch
-                               for o in osds)
-                           and all(pg.state == "active"
-                                   for o in osds for pg in o.pgs.values())):
-                    await asyncio.sleep(0.05)
-            await asyncio.wait_for(active(), 60)
-            await client.write_full(2, "obj", data)
-            results[backend] = bytes(await client.read(2, "obj"))
+            await c.client.create_pool(Pool(**pool))
+            await c.wait_active(60)
+            await c.client.write_full(2, "obj", data)
+            results[backend] = bytes(await c.client.read(2, "obj"))
         finally:
-            await client.close()
-            for o in osds:
-                await o.stop()
-            await mon.stop()
-            for b in buses:
-                await b.close()
+            await c.stop()
 
     run(localbus())
-    run(netbus("tcp"))
-    run(netbus("shm"))
+    run(proc("tcp"))
+    run(proc("shm"))
     assert results["localbus"] == data
     assert results["tcp"] == data
     assert results["shm"] == data

@@ -1,7 +1,7 @@
 """The cluster cases of ``tests/test_faults.py`` on the port
 (``ceph_tpu_torch``): every case that builds a cluster or reads the PG
-or the client (those that need a mon quorum or the multi-device data
-plane wait for ROADMAP §1 items 4 and 6), each cluster on
+or the client, the mon-quorum case among them (those that need the
+multi-device data plane wait for ROADMAP §1 item 6), each cluster on
 ``device="cpu"`` (the kernels' plain versions). The reference's cases
 are copied with only their imports and device changed. Tolerance: exact,
 as in the reference.
@@ -920,3 +920,27 @@ def test_plane_store_fault_rearms_on_revive():
 
     run(t())
 
+
+def test_revived_peon_rediscovers_leader_without_election():
+    """Mon-failover rejoin: a revived peon boots leaderless and
+    campaigns; the healthy leader must answer with a victory
+    re-announce (fold-in) rather than silence — quorum-membership
+    tests alone miss this, because the leader's quorum list never
+    shrank while the peon was down, yet the peon's own `leader` stays
+    None and every client op forwarded through it would fail."""
+    async def t():
+        c = TestCluster(n_osds=3, n_mons=3, device="cpu")
+        await c.start()
+        peon = next(r for r, m in enumerate(c.mons)
+                    if m is not None and not m.is_leader())
+        await c.kill_mon(peon)
+        m = await c.revive_mon(peon)
+        for _ in range(200):
+            if m.leader is not None and m.rank in m.quorum:
+                break
+            await asyncio.sleep(0.05)
+        assert m.leader is not None, "revived peon never found the leader"
+        assert m.rank in m.quorum, "revived peon never rejoined quorum"
+        await c.stop()
+
+    run(t())

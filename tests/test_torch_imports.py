@@ -107,6 +107,63 @@ def test_cluster_with_no_device_and_no_card_raises(monkeypatch):
     assert TestCluster(n_osds=3, device="cpu").device == torch.device("cpu")
 
 
+PROCESS_TIER = ("ceph_tpu_torch.cluster.paxos_mon",
+                "ceph_tpu_torch.cluster.daemon",
+                "ceph_tpu_torch.cluster.procstart")
+
+
+@pytest.mark.parametrize("module", PROCESS_TIER)
+def test_process_tier_module_is_the_ports_own(module):
+    """The process tier's three modules are among the port's, and none
+    of them names JAX or the JAX package (the subprocess and static
+    scans above cover them too)."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ceph_tpu"), name
+
+
+def test_process_tier_with_no_device_and_no_card_raises(monkeypatch,
+                                                        tmp_path):
+    """A ProcCluster resolves its device when it is built, like a
+    TestCluster; the MDS role and ``--chip-loss`` raise (their modules
+    are not ported), while ``--proc`` runs."""
+    import asyncio
+
+    from ceph_tpu_torch.cluster.procstart import ProcCluster
+    from ceph_tpu_torch.tools import thrash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProcCluster(str(tmp_path / "a"), n_osds=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        thrash.main(["--seed", "1", "--proc"])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        thrash.main(["--seed", "1", "--chip-loss", "--device", "cpu"])
+    c = ProcCluster(str(tmp_path / "b"), n_osds=3, device="cpu")
+    assert c.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        asyncio.run(c.start_mds(0, pool=1))
+
+
+def test_a_cuda_daemon_with_no_card_exits_nonzero(tmp_path):
+    """``--device cuda`` with no card: the OSD daemon exits with an
+    error before it boots (no .ready marker), never carrying on on the
+    CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    book = tmp_path / "book"
+    book.mkdir()
+    res = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.cluster.daemon", "--role",
+         "osd", "--id", "0", "--book", str(book), "--store-dir",
+         str(tmp_path), "--n-osds", "1", "--device", "cuda"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr
+    assert not (book / "osd.0.ready").exists()
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
