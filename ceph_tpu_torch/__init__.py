@@ -10,10 +10,14 @@ reference so each module's counterpart is easy to find:
   csrc/         hand-written CUDA kernels for sm_90a
   ops/          gf8 (host field math), rs (GF(2^8) matmul), gf2 (the
                 bitmatrix codes' XOR schedule), crc32c, crush (Jenkins
-                hash, crush_ln, straw2)
+                hash, crush_ln, straw2), xor_combine (the mesh's XOR
+                combines)
   models/       datapath: the batched EC write / repair step
   ec/           codec seam: ErasureCode base, registry, rs_tpu, isa,
                 bitmatrix, clay, lrc, shec
+  parallel/     the multi-device data plane: a mesh of slots (cards, or a
+                virtual mesh on one device), placements, collective
+                repair (shard_comm) and the serving runtime
   checksum/     the BlueStore Checksummer (crc32c family, xxhash): the
                 C++ core by default, the crc32c kernel with device=True
   cluster/      the OSD's ECBatcher and stripe layout, every cluster

@@ -23,6 +23,17 @@ This module closes that gap NIC-interrupt-coalescing style:
   (B, k', su) rebuild batches through the same bucket machinery instead
   of one ``codec.decode`` per object; wanted parity rows fold into the
   recovery matrix host-side (one stacked matmul).
+- **Mesh mode** (``osd_ec_mesh_devices`` > 1, parallel/runtime.py).
+  Each bucket's staging batch is placed slot-resident under a (stripe,
+  width) mesh — stripes land sharded, the fused encode+CRC runs on every
+  slot so each shard row's cells and CRCs are produced on the slot that
+  owns them, and results come back through per-slot shard views
+  (``shard_rows_to_host``), never a whole-array host gather
+  (``runtime.STATS.host_gathers`` proves it). ``parallel_repair_mode``
+  (off/allgather/psum_bits) additionally routes the decode side through
+  shard_comm's distributed GF matmul: recovery partials combine via
+  collectives over the mesh instead of messenger fan-in. Both mesh paths
+  are byte-identical to the single-device dispatch.
 
 The device half is the port's own (the flush policy, fail-closed
 isolation, over-decomposition and the cold-shape shield above it are
@@ -46,11 +57,13 @@ the JAX package's, line for line):
   stream.
 - **No pow2 pad.** The JAX package pads every batch to a power of two to
   cap XLA recompiles per batch size. The CUDA kernels take any B, so the
-  port dispatches each batch at its own size.
-- **Mesh.** ``osd_ec_mesh_devices`` > 1 and ``parallel_repair_mode``
-  other than off need the multi-device data plane (``parallel/``, not
-  ported yet): they raise ``NotImplementedError``; nothing drops to the
-  one-device path.
+  port dispatches each batch at its own size; a mesh batch pads only to
+  a multiple of the stripe axis (``parallel.pad_batch``).
+- **Mesh.** The mesh resolves on the codec's device at the first
+  dispatch (``runtime.serving_mesh``): n cards, or a virtual mesh of n
+  slots on one device after ``parallel.pin_virtual``. A mesh that cannot
+  be had raises to the batch's waiters; nothing drops to the one-device
+  path.
 - **CPU.** On a CPU codec (the tests) the same code runs without pinning
   or streams, through the kernels' plain versions. The device is always
   the codec's.
@@ -157,8 +170,11 @@ class ECBatcher:
         self.warm_seconds: dict[tuple, float] = {}
         #: per executor thread: its own CUDA stream per device
         self._local = threading.local()
-        self.mesh()
-        self._repair_mode()
+        #: serving-mesh resolution state: resolved lazily on the first
+        #: device-engine dispatch, on the codec's device, and cached (a
+        #: mesh that cannot be had raises and is not cached)
+        self._mesh_resolved = False
+        self._mesh_cached = None
 
     @staticmethod
     def declare_counters(perf) -> None:
@@ -245,39 +261,37 @@ class ECBatcher:
             return COLD_SHAPE_BYTES
 
     def _repair_mode(self) -> str:
-        """Always "off" in the port: a collective repair mode raises
-        ``NotImplementedError`` until ``parallel/`` is ported (ROADMAP
-        §2 item 3)."""
         if self.conf is None:
             return "off"
         try:
             mode = str(self.conf["parallel_repair_mode"])
         except Exception:
             return "off"
-        if mode in ("allgather", "psum_bits"):
-            raise NotImplementedError(
-                f"parallel_repair_mode={mode} needs the multi-device data "
-                "plane (parallel/, ROADMAP §2 item 3), which ceph_tpu_torch "
-                "has not ported yet")
-        return "off"
+        return mode if mode in ("allgather", "psum_bits") else "off"
 
-    def mesh(self):
-        """The serving mesh this batcher stages onto: always None in the
-        port. ``osd_ec_mesh_devices`` > 1 raises ``NotImplementedError``
-        until ``parallel/`` is ported (ROADMAP §2 item 3); it never drops
-        to the one-device path."""
-        n = 0
-        if self.conf is not None:
-            try:
-                n = int(self.conf["osd_ec_mesh_devices"])
-            except Exception:
-                n = 0
-        if n > 1:
-            raise NotImplementedError(
-                f"osd_ec_mesh_devices={n} needs the multi-device data "
-                "plane (parallel/, ROADMAP §2 item 3), which ceph_tpu_torch "
-                "has not ported yet")
-        return None
+    def mesh(self, device=None):
+        """The serving mesh this batcher stages onto, or None (single-
+        device path). Resolved once from the osd_ec_mesh_* knobs via
+        parallel/runtime.py on ``device`` (the codec's, which every
+        dispatch passes; the card when none is given) — the process-level
+        cache means every OSD in a test cluster shares one mesh, like
+        chips on a host. A mesh that cannot be had raises; it is not
+        cached, so the next dispatch asks again."""
+        if not self._mesh_resolved:
+            n = w = 0
+            if self.conf is not None:
+                try:
+                    n = int(self.conf["osd_ec_mesh_devices"])
+                    w = int(self.conf["osd_ec_mesh_width"])
+                except Exception:
+                    n = 0
+            if n > 1:
+                from ..parallel import runtime
+
+                self._mesh_cached = runtime.serving_mesh(n, max(1, w),
+                                                         device)
+            self._mesh_resolved = True
+        return self._mesh_cached
 
     # ------------------------------------------------------- submission
 
@@ -608,12 +622,47 @@ class ECBatcher:
                 return host(cells), None
             return np.stack([codec.encode_chunks(c) for c in cells]), \
                 None
-        self.mesh()
+        mesh = self.mesh(codec.device)
+        if mesh is not None and hasattr(codec, "encode_crc_batch_mesh"):
+            return self._mesh_encode_sync(codec, cells, mesh)
         parity, crcs = self._stage(codec.device, cells,
-                              lambda x: codec.encode_crc_batch(x, su))
+                                   lambda x: codec.encode_crc_batch(x, su))
         return parity.view(np.uint8), crcs.view(np.uint32)
 
-    def _overdecomposed(self, cells: np.ndarray, run):
+    @staticmethod
+    def _mesh_pad(batch: np.ndarray, mesh) -> np.ndarray:
+        """Pad the batch axis to a multiple of the mesh's stripe axis
+        (``parallel.pad_batch``; zero stripes encode/decode to zero cells
+        and are sliced away by the caller). No pow2 pad: the kernels take
+        any per-slot batch."""
+        from ..parallel import pad_batch
+
+        n = len(batch)
+        target = pad_batch(n, mesh)
+        if target == n:
+            return batch
+        pad = np.zeros((target - n,) + batch.shape[1:], dtype=batch.dtype)
+        return np.concatenate([batch, pad])
+
+    def _mesh_encode_sync(self, codec, cells: np.ndarray, mesh):
+        """Slot-resident shard staging: ONE pad (stripe-divisible), one
+        placement so batched stripes land on their owning slots, one
+        fused encode+CRC over the mesh — each of the k+m shard rows'
+        cells and CRCs are produced where they live, and the results come
+        back as per-slot shard views with NO whole-array host gather."""
+        from ..parallel import runtime
+
+        b, k, su = cells.shape
+        batch = ECBatcher._mesh_pad(rs.pack_u32(cells), mesh)
+        parity_w, crcs_d = codec.encode_crc_batch_mesh(batch, su, mesh)
+        parity = runtime.shard_rows_to_host(parity_w)
+        crcs = runtime.shard_rows_to_host(crcs_d)
+        runtime.STATS.bump(encode_stripes=b)
+        if self.perf is not None:
+            self.perf.inc("ec_mesh_encode_dispatches")
+        return rs.unpack_u32(parity[:b]), crcs[:b]
+
+    def _overdecomposed(self, cells: np.ndarray, run, device=None):
         """Rateless recovery over-decomposition (arXiv:1804.10331) —
         the device-tier half of straggler-proof dispatch. The batched
         recovery matmul splits along its batch axis into
@@ -625,12 +674,16 @@ class ECBatcher:
         round. Byte-exact by construction: both copies of a block run
         the SAME kernel over the SAME rows, and the blocks partition
         the batch. Returns None when the knob is off or the batch is
-        too small to split (the single dispatch)."""
+        too small to split (the single dispatch). ``device`` is the
+        codec's, on which the mesh that sizes the pool resolves."""
         factor = self._overdecompose_factor()
         n = len(cells)
         if factor <= 0 or n < 2:
             return None
-        workers = min(4, os.cpu_count() or 1)
+        devs = getattr(self.mesh(device), "devices", None)
+        workers = int(getattr(devs, "size", 0) or 0)
+        if workers <= 0:
+            workers = min(4, os.cpu_count() or 1)
         blocks = rs.row_blocks(n, factor * workers)
         if len(blocks) <= 1:
             return None
@@ -762,6 +815,7 @@ class ECBatcher:
                      cells: np.ndarray) -> np.ndarray:
         """(B, k', su) u8 survivors -> (B, len(want), su) u8."""
         engine = getattr(codec, "resolved_backend", lambda: "device")()
+        dev = getattr(codec, "device", None)
         b, kp, su = cells.shape
         if engine == "host" or not hasattr(codec, "decode_batch"):
             _dispatch_block = self._host_decode_block(codec, present,
@@ -771,8 +825,17 @@ class ECBatcher:
                     f"codec {type(codec).__name__} has no batched "
                     "decode")
         else:
-            self.mesh()
-            self._repair_mode()
+            mesh = self.mesh(dev)
+            mode = self._repair_mode()
+            if (mesh is not None and mode != "off"
+                    and hasattr(codec, "decode_batch_mesh")):
+                # the collective path already distributes ONE matmul
+                # across every slot with its own combine — slicing its
+                # batch would serialize collectives, so it keeps its
+                # own distribution and skips over-decomposition (and
+                # the cold-shape shield: mesh rounds are storm-sized)
+                return self._mesh_decode_sync(codec, present, want,
+                                              cells, mesh, mode)
 
             def _dispatch_block(blk: np.ndarray) -> np.ndarray:
                 (out,) = self._stage(codec.device, blk, lambda x: (
@@ -789,9 +852,9 @@ class ECBatcher:
                                                  kp, su)
                 if self.perf is not None:
                     self.perf.inc("ec_decode_cold_host")
-                out = self._overdecomposed(cells, shield)
+                out = self._overdecomposed(cells, shield, dev)
                 return out if out is not None else shield(cells)
-        out = self._overdecomposed(cells, _dispatch_block)
+        out = self._overdecomposed(cells, _dispatch_block, dev)
         return (out if out is not None
                 else _dispatch_block(cells))
 
@@ -800,6 +863,7 @@ class ECBatcher:
         """(B, d, su/q) u8 helper slices -> (B, 1, su) u8 rebuilt
         cells — the regenerating-code sub-chunk repair dispatch."""
         engine = getattr(codec, "resolved_backend", lambda: "device")()
+        dev = getattr(codec, "device", None)
         if engine == "host" or not hasattr(codec, "repair_batch"):
             _dispatch_block = self._host_repair_block(codec, present,
                                                       want)
@@ -820,8 +884,26 @@ class ECBatcher:
                 shield = self._host_repair_block(codec, present, want)
                 if self.perf is not None:
                     self.perf.inc("ec_decode_cold_host")
-                out = self._overdecomposed(cells, shield)
+                out = self._overdecomposed(cells, shield, dev)
                 return out if out is not None else shield(cells)
-        out = self._overdecomposed(cells, _dispatch_block)
+        out = self._overdecomposed(cells, _dispatch_block, dev)
         return (out if out is not None
                 else _dispatch_block(cells))
+
+    def _mesh_decode_sync(self, codec, present: tuple, want: tuple,
+                          cells: np.ndarray, mesh,
+                          method: str) -> np.ndarray:
+        """Collective repair: survivors staged one chunk-group per width
+        slot, the stacked recovery matmul distributed across the mesh
+        with partials XOR-combined by ``method`` — the messenger-fan-in-
+        free decode side of the serving mesh."""
+        from ..parallel import runtime
+
+        b, kp, su = cells.shape
+        batch = ECBatcher._mesh_pad(rs.pack_u32(cells), mesh)
+        out = codec.decode_batch_mesh(present, batch, want, mesh, method)
+        host = runtime.shard_rows_to_host(out)
+        runtime.STATS.bump(decode_stripes=b)
+        if self.perf is not None:
+            self.perf.inc("ec_mesh_decode_dispatches")
+        return rs.unpack_u32(host[:b])

@@ -7,7 +7,10 @@ the port's own for that technique; ``batch_to_device`` /
 ``batch_to_numpy`` move stripe batches of uint32 words in and out as
 int32 tensors; ``crushmap_from_reference`` / ``osdmap_from_reference``
 decode the reference's wire bytes of a CRUSH map or an OSDMap with the
-port's decoder and refuse bytes that do not re-encode to themselves.
+port's decoder and refuse bytes that do not re-encode to themselves;
+``sharded_from_shards`` / ``shards_of`` carry a mesh-sharded array across
+as its per-device pieces (numpy, each with its index), so two meshes'
+results compare shard by shard.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 
 from .device import tensor_to_words, words_to_tensor
 from .models.datapath import ECParams
+from .parallel import Mesh, Shard, Sharded, slot_index, to_host, to_slot
 from .placement import encoding
 from .placement.crushmap import CrushMap
 from .placement.osdmap import OSDMap
@@ -65,3 +69,41 @@ def osdmap_from_reference(blob: bytes) -> OSDMap:
     unless re-encoding gives the same bytes."""
     return _carried(blob, encoding.decode_osdmap, encoding.encode_osdmap,
                     "OSD map")
+
+
+def _normal_index(index: tuple, shape: tuple) -> tuple:
+    """An index as explicit (start, stop) slices: a reference shard's
+    ``slice(None)`` over an unsharded axis becomes ``slice(0, n)``."""
+    index = tuple(index) + (slice(None),) * (len(shape) - len(index))
+    return tuple(slice(*sl.indices(n)[:2]) for sl, n in zip(index, shape))
+
+
+def sharded_from_shards(mesh: Mesh, spec: tuple, shape: tuple,
+                        shards: list) -> Sharded:
+    """The port's ``Sharded`` form of a reference mesh-sharded array:
+    ``shards`` are its per-device pieces as (index, numpy array) pairs in
+    the order of the reference mesh's flat devices, which the port's
+    ``mesh`` slots take up position by position. Each piece lands on its
+    slot's device (uint32 words as int32 tensors); raises when a piece's
+    index differs from the one the port's placement gives that slot."""
+    shape = tuple(shape)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+    out = []
+    for p, (slot, (index, piece)) in enumerate(zip(mesh.devices.flat,
+                                                  shards)):
+        index = _normal_index(index, shape)
+        if index != slot_index(mesh, spec, shape, p):
+            raise ValueError(f"shard {p} holds {index}, the port's slot "
+                             f"{slot.id} would hold "
+                             f"{slot_index(mesh, spec, shape, p)}")
+        out.append(Shard(slot, index, to_slot(np.asarray(piece),
+                                                slot.device)))
+    return Sharded(mesh, spec, shape, out)
+
+
+def shards_of(arr: Sharded) -> list[tuple[tuple, np.ndarray]]:
+    """The per-slot pieces of a ``Sharded`` as (index, numpy) pairs in the
+    mesh's flat slot order (int32 words come back uint32), the form a
+    reference array's ``addressable_shards`` give."""
+    return [(sh.index, to_host(sh.data)) for sh in arr.shards]

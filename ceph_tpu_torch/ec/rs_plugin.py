@@ -204,6 +204,30 @@ class RSCodec(ErasureCode):
         the per-cell CRC32Cs of data+parity, one launch of each kernel."""
         return rs.encode_with_crcs(self.matrix, cell_bytes, self._words(data))
 
+    def encode_crc_batch_mesh(self, data, cell_bytes: int, mesh):
+        """encode_crc_batch over a (stripe, width) device mesh: the
+        (B, k, W) uint32 batch is staged slot-resident (``chunk_batch``),
+        each slot encodes and checksums the block it holds, and both
+        results come back as MESH-SHARDED arrays for per-slot consumption
+        (parallel/runtime.py)."""
+        from ..parallel import runtime
+
+        return runtime.mesh_encode_crc_batch(mesh, self.matrix,
+                                             cell_bytes, data)
+
+    def decode_batch_mesh(self, present: tuple[int, ...], surviving,
+                          want: tuple[int, ...], mesh, method: str):
+        """Collective repair: the stacked recovery matmul for ``want``
+        rows from ``present`` survivors, distributed over the mesh —
+        survivors resident one chunk-group per width slot, partials
+        XOR-combined by ``method`` (allgather / psum_bits) instead of
+        gathered through messenger fan-in. Returns the (B, R, W) result
+        batch-sharded."""
+        from ..parallel import runtime
+
+        rmat = self.decode_matrix_for(present, want)
+        return runtime.mesh_decode_cells(mesh, rmat, surviving, method)
+
     def decode_batch(self, present: tuple[int, ...], surviving,
                      want: tuple[int, ...] | None = None) -> torch.Tensor:
         """(B, k, W) survivors (rows in ``present`` order) -> (B, k, W)

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point. At first
-use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+Each kernel is one ``csrc/*.cu`` file with a plain C entry point (K6,
+``xor_combine.cu``, has four: one ``Kernel`` each, sharing one library). At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ceph_tpu_torch/build/`` (named by a digest of its source, every
 ``csrc`` header it includes and the flags, so a changed source or header
 is rebuilt) and loaded with ``ctypes``. Pointers and the
@@ -165,14 +166,30 @@ CRUSH_RULE = Kernel("crush_rule", "crush_rule.cu", "crush_rule_launch",
                     [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P])
 GF2_XOR = Kernel("gf2_xor", "gf2_xor.cu", "gf2_xor_launch",
                  [_P, _P, _P, _L, _I, _I, _I, _L, _P])
-KERNELS = (GF_MATMUL, CRC32C, STRAW2, CRUSH_RULE, GF2_XOR)
+#: K6, csrc/xor_combine.cu: four entry points of one library.
+XOR_FOLD = Kernel("xor_fold", "xor_combine.cu", "xor_fold_launch",
+                  [_P, _P, _I, _L, _P])
+BIT_PLANES = Kernel("bit_planes", "xor_combine.cu", "bit_planes_launch",
+                    [_P, _P, _L, _P])
+PLANE_PARITY_PACK = Kernel("plane_parity_pack", "xor_combine.cu",
+                           "plane_parity_pack_launch", [_P, _P, _I, _L, _P])
+CRC_JOIN = Kernel("crc_join", "xor_combine.cu", "crc_join_launch",
+                  [_P, _P, _P, _I, _L, _U, _P])
+KERNELS = (GF_MATMUL, CRC32C, STRAW2, CRUSH_RULE, GF2_XOR, XOR_FOLD,
+           BIT_PLANES, PLANE_PARITY_PACK, CRC_JOIN)
 
 
 def build_all() -> float:
-    """Compile every kernel not yet built, one ``nvcc`` each, all started
-    together; load them all. Returns the wall seconds it took."""
+    """Compile every kernel library not yet built, one ``nvcc`` per
+    source, all started together; load every entry point. Returns the
+    wall seconds it took."""
     t0 = time.perf_counter()
-    started = [(k, k._start_build()) for k in KERNELS if k._fn is None]
+    started, building = [], set()
+    for k in KERNELS:
+        if k._fn is None:  # the first entry of a source starts its build
+            lib = k.library
+            started.append((k, None if lib in building else k._start_build()))
+            building.add(lib)
     errors = []
     for k, s in started:  # wait for every nvcc, even after a failure
         with k._lock:
@@ -371,4 +388,68 @@ def crush_rule(items: torch.Tensor, weights: torch.Tensor,
                       dev_weights.data_ptr(), xs.data_ptr(), xs.shape[0],
                       tables.data_ptr(), out.data_ptr(), packed,
                       None if draws is None else draws.data_ptr())
+    return out
+
+
+def _check_k6(t: torch.Tensor, dtype, shape_ndim: int, what: str,
+              device=None) -> None:
+    _check_vec(t, dtype, what, device)
+    if t.dim() != shape_ndim:
+        raise ValueError(f"{what} must be {shape_ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+
+
+def xor_fold(parts: torch.Tensor) -> torch.Tensor:
+    """parts (n, N) int32 words on the card -> (N,) int32, the XOR of the
+    n rows, on K6."""
+    _check_k6(parts, torch.int32, 2, "parts")
+    n, length = parts.shape
+    if n < 1:
+        raise ValueError("xor_fold needs at least one row")
+    out = torch.empty(length, dtype=torch.int32, device=parts.device)
+    XOR_FOLD.launch(parts.device, parts.data_ptr(), out.data_ptr(), n, length)
+    return out
+
+
+def bit_planes(x: torch.Tensor) -> torch.Tensor:
+    """x (N,) int32 words on the card -> (32, N) uint8, plane b holding
+    bit b of each word, on K6."""
+    _check_k6(x, torch.int32, 1, "x")
+    planes = torch.empty((32, x.shape[0]), dtype=torch.uint8, device=x.device)
+    BIT_PLANES.launch(x.device, x.data_ptr(), planes.data_ptr(), x.shape[0])
+    return planes
+
+
+def plane_parity_pack(planes: torch.Tensor) -> torch.Tensor:
+    """planes (n, 32, N) uint8 on the card -> (N,) int32 whose bit b is the
+    parity of the n planes' sum at (b, i), on K6."""
+    _check_k6(planes, torch.uint8, 3, "planes")
+    n, bits, length = planes.shape
+    if n < 1 or bits != 32:
+        raise ValueError(f"planes {tuple(planes.shape)} are not (n, 32, N)")
+    out = torch.empty(length, dtype=torch.int32, device=planes.device)
+    PLANE_PARITY_PACK.launch(planes.device, planes.data_ptr(), out.data_ptr(),
+                             n, length)
+    return out
+
+
+#: Most segments crc_join takes (its kMaxSegments): their columns sit in
+#: 32 KiB of shared memory.
+CRC_JOIN_MAX_SEGMENTS = 256
+
+
+def crc_join(parts: torch.Tensor, zcols: torch.Tensor,
+             seed_term: int) -> torch.Tensor:
+    """parts (w, M) int32 seed-0 segment CRCs on the card, zcols (w, 32)
+    int32 columns of each segment's shift operator, seed_term the cell's
+    seed contribution -> (M,) int32 CRCs, on K6."""
+    _check_k6(parts, torch.int32, 2, "parts")
+    _check_k6(zcols, torch.int32, 2, "zcols", parts.device)
+    w, m = parts.shape
+    if not 1 <= w <= CRC_JOIN_MAX_SEGMENTS or tuple(zcols.shape) != (w, 32):
+        raise ValueError(f"parts {tuple(parts.shape)} and zcols "
+                         f"{tuple(zcols.shape)} do not fit the kernel")
+    out = torch.empty(m, dtype=torch.int32, device=parts.device)
+    CRC_JOIN.launch(parts.device, parts.data_ptr(), zcols.data_ptr(),
+                    out.data_ptr(), w, m, seed_term & 0xFFFFFFFF)
     return out

@@ -9,7 +9,7 @@ plane is a single-reactor asyncio messenger (the Crimson stance — one
 event loop per process removes the reference's lock hierarchy by
 construction, src/crimson/osd), and the DATA plane does not travel here
 at all when shards are device-resident — EC fan-out/gather ride
-collectives over the mesh (parallel/, not yet ported), while this layer carries
+collectives over the mesh (parallel/), while this layer carries
 maps, heartbeats, sub-op control, and host-resident chunk payloads.
 
 Two interchangeable messengers:

@@ -323,6 +323,38 @@ def crc0_cells(data: torch.Tensor, parity: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (out.shape[-1],))
 
 
+# ------------------------------------------------- cells cut into segments
+
+
+def segment_shift_columns(words: int, parts: int) -> np.ndarray:
+    """(parts, 32) uint32 for cells of ``words`` words cut into ``parts``
+    equal segments (the width slots of a mesh): row j holds the columns
+    of Z_{4 (words - end_j)}, which carries segment j's seed-0 CRC past
+    the true bytes after it (the identity for the last segment). Then
+    crc0(cell) = XOR_j Z_j(crc0(segment j)): segments are never padded as
+    if each were a cell."""
+    if parts < 1 or words % parts:
+        raise ValueError(f"{words} words do not split into {parts} segments")
+    seg = words // parts
+    identity = (np.uint32(1) << np.arange(32, dtype=np.uint32))
+    return np.stack([_zeros_cols(4 * (words - (j + 1) * seg))
+                     if j < parts - 1 else identity for j in range(parts)])
+
+
+@functools.lru_cache(maxsize=256)
+def _device_columns(cols_bytes: bytes, device: str) -> torch.Tensor:
+    # A blocking copy, as _kernel_constants.
+    cols = np.frombuffer(cols_bytes, dtype=np.uint32).reshape(-1, 32)
+    return words_to_tensor(cols, device)
+
+
+def device_columns(cols: np.ndarray, device: str) -> torch.Tensor:
+    """(n, 32) uint32 operator columns as an int32 tensor on ``device``,
+    cached per (columns, device)."""
+    return _device_columns(np.ascontiguousarray(cols, np.uint32).tobytes(),
+                           device)
+
+
 def crc32c_batch(blobs: np.ndarray, seed: int = CRC_SEED,
                  device: torch.device | str | None = None) -> np.ndarray:
     """Per-blob CRC32C: blobs (..., L) uint8 -> (...,) uint32, computed on

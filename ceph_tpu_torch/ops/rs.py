@@ -191,6 +191,20 @@ def decode(matrix: np.ndarray, k: int, present: list[int],
     return gf_matmul(gf8.decode_matrix(matrix, k, list(present)), chunks)
 
 
+def column_blocks(matrix: np.ndarray, parts: int) -> list[np.ndarray]:
+    """Split an (R, C) GF matrix into ``parts`` contiguous column blocks of
+    C/parts columns: block j multiplies the chunks that width slot j holds
+    (the port's form of the JAX package's ``_block_bitmatrices``,
+    ``parallel/shard_comm.py:57``; K1 takes each block as a GF matrix)."""
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    c = matrix.shape[1]
+    if parts < 1 or c % parts:
+        raise ValueError(f"{c} chunks do not split over {parts} devices")
+    cl = c // parts
+    return [np.ascontiguousarray(matrix[:, d * cl:(d + 1) * cl])
+            for d in range(parts)]
+
+
 def row_blocks(n: int, parts: int) -> list[tuple[int, int]]:
     """Balanced contiguous partition of an ``n``-row batch axis into at
     most ``parts`` non-empty ``(lo, hi)`` blocks; sizes differ by at most

@@ -19,9 +19,11 @@ Usage:
 
 ``--device`` names where the cluster's codecs and placement run (the
 CUDA card when left out; with ``--proc``, every OSD process's device).
-``--chip-loss`` needs the multi-device data plane (``parallel/``,
-ROADMAP §1 item 6) and raises ``NotImplementedError`` until it is
-ported. ``--schedule-only`` prints the schedule for any arguments.
+``--chip-loss`` runs the EC pool over the device mesh (``parallel/``):
+``--chips`` slots of ``--mesh-width``, a virtual mesh on ``--device``
+(pinned with ``parallel.pin_virtual``) unless the machine has that many
+cards, collective repair by ``allgather``; the verdict gains the mesh
+ledger. ``--schedule-only`` prints the schedule for any arguments.
 
 Exit codes: 0 the verdict passed, 1 it failed, 2 usage error.
 Same seed => same schedule => same verdict (the replayability
@@ -140,9 +142,12 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.chip_loss:
-        raise NotImplementedError(
-            "--chip-loss needs parallel/, which the port has not taken "
-            "yet (ROADMAP §1 item 6)")
+        # a mesh of --chips slots: n cards where the machine has them,
+        # else a virtual mesh of --chips slots on --device
+        from .. import parallel
+
+        parallel.pin_virtual(args.chips)
+
     if args.proc:
         verdict = asyncio.run(_run_proc(args, max_unavail))
     else:
@@ -176,7 +181,20 @@ async def _run(args, max_unavail: int) -> dict:
     from ..ec import load_codec
     from ..placement.osdmap import Pool
 
-    profile = _ec_profile(args, "auto")
+    osd_conf = None
+    backend = "auto"
+    if args.chip_loss:
+        # the multi-chip serving path under thrash: device engine,
+        # mesh-sharded encode staging, collective repair — the arm
+        # that proves a chip loss degrades and repairs through the
+        # mesh, not just through messenger fan-in
+        osd_conf = {
+            "osd_ec_mesh_devices": args.chips,
+            "osd_ec_mesh_width": args.mesh_width,
+            "parallel_repair_mode": "allgather",
+        }
+        backend = "device"
+    profile = _ec_profile(args, backend)
     size = load_codec(dict(profile),
                       device=args.device).get_chunk_count()
     if args.osds < size:
@@ -184,7 +202,8 @@ async def _run(args, max_unavail: int) -> dict:
             f"--profile {args.profile} stores {size} chunks: need "
             f"--osds >= {size}")
     c = TestCluster(n_osds=args.osds, n_mons=args.mons,
-                    fault_seed=args.seed, device=args.device)
+                    fault_seed=args.seed, osd_conf=osd_conf,
+                    device=args.device)
     await c.start()
     # the oracle's ordering contract: one tid per op for the whole
     # thrash — the op must outlive any partition, so the deadline
@@ -219,6 +238,13 @@ async def _run(args, max_unavail: int) -> dict:
                         "ec_repair_bytes_rebuilt"):
                 econ[key] = econ.get(key, 0) + int(d.get(key, 0))
         verdict["ec_counters"] = econ
+        if args.chip_loss:
+            from ..parallel import runtime
+
+            # the mesh ledger proves the serving path actually ran
+            # sharded (encode dispatches > 0) and repaired through
+            # collectives (decode dispatches) with zero host gathers
+            verdict["mesh"] = runtime.STATS.dump()
     finally:
         await c.stop()
     return verdict

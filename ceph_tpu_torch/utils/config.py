@@ -15,9 +15,10 @@ an option to its default.
 This is ceph_tpu_torch's own copy of ``ceph_tpu/utils/config.py`` with
 the whole options table (the tests hold every name, type, default and
 bound equal to the JAX package's), so the cluster tier can read it.
-Options whose subsystem the port has not reached yet say so where they
-are read: ``osd_ec_mesh_devices`` > 1 and ``parallel_repair_mode`` other
-than off make the port's ECBatcher raise until ``parallel/`` is ported.
+``osd_ec_mesh_devices`` > 1 and ``parallel_repair_mode`` other than off
+run the ECBatcher over a device mesh (``parallel/``): n cards, or a
+virtual mesh on one device after ``parallel.pin_virtual``; a mesh that
+cannot be had raises.
 """
 from __future__ import annotations
 

@@ -136,6 +136,23 @@ encode batches must run on the writes and decode batches on the degraded
 read, none on the host engine and none failed; the start line prints the
 start-up seconds by role, the daemons' CPU seconds and resident memory.
 
+Phase ``mesh`` drives the multi-device data plane (``parallel/``) on a
+virtual mesh of 8 slots over the one card (``parallel.pin_virtual``: each
+slot holds its own tensors, and every copy between slots is made on the
+card, so the mesh moves the bytes a mesh of cards moves): the XOR-combine
+kernel K6 (``xor_fold``, ``bit_planes``, ``plane_parity_pack``,
+``crc_join``) against its plain version at its edges; then, every count
+at 0, the write step at the main path's width over meshes of 8 x 1, 4 x 2
+and 2 x 4 slots (K1 and K2 on every slot's block, the segment CRCs joined
+by K6), collective repair of shards 1 and 6 at widths 2 and 4
+(``allgather`` at 256 stripes, ``psum_bits`` at 64), each slot's result
+equal to the one-device step; an ECBatcher at the OSD's shapes with the
+mesh knobs on in both repair modes, equal to a one-device batcher; phase
+``cluster``'s deployment with the knobs on (64 objects of 4 MiB written,
+read, read degraded with one OSD down, no host gather); and the multi-chip
+dry run. It prints each mesh step's time beside the one-device step's and
+K6's times at the shapes the path gave it beside their bounds.
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -212,8 +229,17 @@ PL_CHECK_X, PL_ORACLE_X = 65_536, 10_000
 #: of one and of two full groups of 32 lanes.
 PL_EDGE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 #: Inputs a rule edge map takes: a ragged count of groups and of blocks;
-#: the numrep-256 map takes fewer (its plain version dominates the edges).
+#: the numrep-256 map takes fewer. The edges hold the kernel's rows
+#: against the host rule engine (``CrushMap.do_rule``) and its draw count
+#: across the lane widths. The plain torch engine took 110.1-146.3 s on
+#: all of them on the card, launch-bound whatever the input count (its
+#: numrep-256 map 58.7 s at 259 inputs and 66.9 s at 67), so it holds
+#: rows and draws on the maps of PL_EDGE_PLAIN only (a firstn and an
+#: indep rule either side of a group of 32 lanes), on 65,536 inputs of
+#: each rule above, and on every edge map in tests/test_torch_gpu.py.
 PL_EDGE_X, PL_EDGE_X_WIDE = 1027, 259
+PL_EDGE_PLAIN = ("flat33_firstn", "tree33_indep", "tree65_firstn",
+                 "flat65_indep")
 PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
 PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 
@@ -353,6 +379,11 @@ PR_QUORUM_TIMEOUT_S, PR_CLEAN_TIMEOUT_S = 120.0, 300.0
 #: kill: a request that a peon forwards to the dead leader is lost, and
 #: the poll re-sends after this many seconds instead of the op timeout.
 PR_QUORUM_POLL_S = 2.0
+#: The client's op timeout for the pool create after the failover: a mon
+#: op sent just after the leader's kill can be lost (ROADMAP §3 item 9),
+#: and the client re-sends it after this many seconds (three attempts)
+#: instead of waiting out PR_OP_TIMEOUT_S.
+PR_FAILOVER_OP_S = 10.0
 #: WalStore's checkpoint threshold on the phase's OSDs (the
 #: walstore_compact_bytes option; default 64 MiB). A checkpoint encodes and
 #: zlib-compresses the whole store while it holds the store lock, and at
@@ -1090,39 +1121,58 @@ def placement_phase(dev) -> dict:
 
     # ---- the rule kernel at the edges of its lane groups (bucket sizes
     # either side of 32 and 64, zero weights, an empty bucket, uneven
-    # depth, rows of 256, the legacy tunables), rows and draws against the
-    # plain version on the same inputs, a ragged count of them, at both
-    # widths group_width can choose for a map (a batch the card holds
-    # whole, one that fills it)
+    # depth, rows of 256, the legacy tunables) on a ragged count of
+    # inputs, at both widths group_width can choose for a map (a batch the
+    # card holds whole, one that fills it): rows against the host rule
+    # engine, draws equal across the widths, and on the PL_EDGE_PLAIN maps
+    # rows and draws against the plain version on the same inputs
     xrng = np.random.default_rng(20261019)
-    edge_groups = {}
+    edge_groups, edge_oracle_s, edge_plain_draws = {}, {}, {}
+    t_edges = time.perf_counter()
     for ename, (emap, ruleno, numrep, ew) in rule_edge_maps().items():
         ecomp = bulk.CompiledMap(emap)
         erule = ecomp.compile_rule(ruleno, numrep)
-        ew_t = t32(np.full(ecomp.max_devices, 0x10000, dtype=np.uint32)
-                   if ew is None else ew)
-        ex_t = t32(xrng.integers(0, 2**32, PL_EDGE_X if numrep < 256
-                                 else PL_EDGE_X_WIDE, dtype=np.uint32))
-        pd = zero_count()
-        want = bulk.rule_rows_plain(ecomp, ew_t, ex_t, erule, numrep, pd)
+        ew = (np.full(ecomp.max_devices, 0x10000, dtype=np.uint32)
+              if ew is None else ew)
+        ew_t = t32(ew)
+        ex = xrng.integers(0, 2**32, PL_EDGE_X if numrep < 256
+                           else PL_EDGE_X_WIDE, dtype=np.uint32)
+        ex_t = t32(ex)
+        t_oracle = time.perf_counter()
+        want = torch.tensor([row + [cm.ITEM_NONE] * (numrep - len(row))
+                             for row in (emap.do_rule(ruleno, int(x), numrep,
+                                                      ew) for x in ex)],
+                            dtype=torch.int32, device=dev)
+        edge_oracle_s[ename] = time.perf_counter() - t_oracle
         widths = sorted({bulk.group_width(ecomp.widest(erule.take), n, lanes)
                          for n in (1, PL_X)})
-        err = 0
+        err, draws = 0, set()
         for width in widths:
             kd = zero_count()
             err = max(err, max_abs_err(bulk.rule_rows(
                 ecomp, ew_t, ex_t, erule, numrep, kd, width), want))
-            check(int(kd.item()) == int(pd.item()),
-                  f"crush_rule edge {ename}, {width} lanes: the kernel "
-                  f"counted {int(kd.item())} draws, the plain version "
-                  f"{int(pd.item())}")
-        check(err == 0, f"crush_rule edge {ename}: kernel and plain differ "
+            draws.add(int(kd.item()))
+        check(len(draws) == 1 and min(draws) > 0,
+              f"crush_rule edge {ename}: the kernel counted draws {draws} "
+              f"at {widths} lanes")
+        if ename in PL_EDGE_PLAIN:
+            pd = zero_count()
+            err = max(err, max_abs_err(bulk.rule_rows_plain(
+                ecomp, ew_t, ex_t, erule, numrep, pd), want))
+            check(int(pd.item()) in draws,
+                  f"crush_rule edge {ename}: the kernel counted {draws} "
+                  f"draws, the plain version {int(pd.item())}")
+            edge_plain_draws[ename] = int(pd.item())
+        check(err == 0, f"crush_rule edge {ename}: kernel and do_rule differ "
                         f"by {err}")
         edge_groups[ename] = widths
         errs[f"edge_{ename}"] = err
     emit({"phase": "placement_rule_edges", "inputs": PL_EDGE_X,
-          "inputs_numrep_256": PL_EDGE_X_WIDE,
-          "groups": edge_groups, "draws_equal": True,
+          "inputs_numrep_256": PL_EDGE_X_WIDE, "against": "CrushMap.do_rule",
+          "seconds": time.perf_counter() - t_edges,
+          "oracle_seconds": edge_oracle_s,
+          "groups": edge_groups, "draws_equal_across_widths": True,
+          "plain_draws": edge_plain_draws,
           "max_abs_err": max(errs[f"edge_{e}"] for e in edge_groups)})
 
     # ---- times: config 5 and each rule at full size, at the check shape
@@ -3360,13 +3410,14 @@ async def pr_cluster(data_dir: str, backend: str, device, card: str,
             quorum = await pr_quorum(c.client, PR_MONS - 1,
                                      PR_QUORUM_TIMEOUT_S)
             quorum_s = time.perf_counter() - t_fail
-            c.client.op_timeout = PR_OP_TIMEOUT_S
             new_leader = c.leader_mon_rank()
             check(new_leader != leader,
                   f"proc: mon.{leader} killed and still the leader")
+            c.client.op_timeout = PR_FAILOVER_OP_S
             pool = await c.client.create_pool(Pool(
                 id=PR_AFTER_FAILOVER_POOL, name="after_failover", size=3,
                 min_size=2, pg_num=8, crush_rule=0))
+            c.client.op_timeout = PR_OP_TIMEOUT_S
             check(pool == PR_AFTER_FAILOVER_POOL
                   and pool in c.client.osdmap.pools,
                   f"proc: pool created after the failover is {pool}")
@@ -3457,6 +3508,500 @@ def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "proc_launches", **launches})
     return {"lines": lines, "launches": launches}
+
+
+#: Phase mesh: the multi-device data plane (``parallel/``) on a virtual mesh
+#: of MESH_SLOTS slots over the one card (``parallel.pin_virtual``): each
+#: slot holds its own tensors on the card and the copies between slots are
+#: made on the card, so the mesh moves the bytes a mesh of cards moves.
+#: The write step at the main path's width over each (stripe, width) shape
+#: of MESH_SHAPES; collective repair of the main path's erasure pattern at
+#: the widths MESH_REPAIR_WIDTHS, ``allgather`` at B = MAIN_B and
+#: ``psum_bits`` at MESH_PSUM_B stripes (its planes take a byte a bit:
+#: at B = 256 and width 4 a slot's planes are 4 GiB, 32 GiB for the mesh,
+#: and each slot gathers 16 GiB more; at 64 stripes a quarter of that).
+MESH_SLOTS = 8
+MESH_SHAPES = ((8, 1), (4, 2), (2, 4))
+MESH_REPAIR_WIDTHS = (2, 4)
+MESH_PSUM_B = 64
+#: K6 against its plain version: row counts 1..8 at these word counts, and
+#: crc_join over 1..8 segments of these cell lengths in words (not powers
+#: of two) for MESH_JOIN_CELLS cells.
+K6_EDGE_N = (1, 31, 32, 33, (1 << 20) + 3)
+K6_JOIN_WORDS = (1, 3, 37, 1000)
+MESH_JOIN_CELLS = (1, 33, 1027)
+#: The ECBatcher at the OSD's shapes over the mesh: MESH_ECB_SUBMITS
+#: submissions of MESH_ECB_STRIPES stripes of 4 KiB cells, 8 at a time,
+#: with MESH_WIDTH and each repair mode, then their degraded reads.
+MESH_ECB_SUBMITS, MESH_ECB_STRIPES, MESH_ECB_CONCURRENCY = 64, 16, 8
+MESH_WIDTH = 2
+#: Phase cluster's deployment with the mesh knobs on: MESH_CL_OBJECTS
+#: RBD objects on the EC pool, one OSD killed, every object read degraded.
+MESH_CL_OBJECTS, MESH_CL_KILLED = 64, 1
+K6_ENTRIES = ("xor_fold", "bit_planes", "plane_parity_pack", "crc_join")
+K6_REPLACES = {"xor_fold": "ceph_tpu/parallel/shard_comm.py:88",
+               "bit_planes": "ceph_tpu/parallel/shard_comm.py:95",
+               "plane_parity_pack": "ceph_tpu/parallel/shard_comm.py:98",
+               "crc_join": "ceph_tpu/ops/crc32c.py:158"}
+
+
+def k6_edge_cases() -> dict:
+    """K6's edges: name -> (entry, rows n (segments w for crc_join), words
+    a row N (cell words for crc_join))."""
+    cases = {}
+    for length in K6_EDGE_N:
+        cases[f"bit_planes_N{length}"] = ("bit_planes", 1, length)
+        for n in range(1, MESH_SLOTS + 1):
+            cases[f"xor_fold_n{n}_N{length}"] = ("xor_fold", n, length)
+            cases[f"plane_parity_pack_n{n}_N{length}"] = (
+                "plane_parity_pack", n, length)
+    for w in range(1, MESH_SLOTS + 1):
+        for words in K6_JOIN_WORDS:
+            cases[f"crc_join_w{w}_W{w * words}"] = ("crc_join", w, w * words)
+    return cases
+
+
+def k6_case(entry: str, n: int, length: int, rng, dev):
+    """One K6 edge case on ``dev``: (the entry's result, its plain
+    version's) on the same random inputs."""
+    from ceph_tpu_torch.device import words_to_tensor
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.ops import xor_combine
+
+    def words(shape):
+        return words_to_tensor(rng.integers(0, 2**32, shape,
+                                            dtype=np.uint32), dev)
+
+    if entry == "xor_fold":
+        x = words((n, length))
+        return xor_combine.xor_fold(x), xor_combine.xor_fold_plain(x)
+    if entry == "bit_planes":
+        x = words((length,))
+        return xor_combine.bit_planes(x), xor_combine.bit_planes_plain(x)
+    if entry == "plane_parity_pack":
+        planes = xor_combine.bit_planes_plain(words((n, length))) \
+            .transpose(0, 1).contiguous()
+        return (xor_combine.plane_parity_pack(planes),
+                xor_combine.plane_parity_pack_plain(planes))
+    cells = MESH_JOIN_CELLS[length % len(MESH_JOIN_CELLS)]
+    parts = words((n, cells))
+    zcols = crc_ops.segment_shift_columns(length, n)
+    seed = crc_ops.zeros_shift(crc_ops.CRC_SEED, 4 * length)
+    return (xor_combine.crc_join(parts, zcols, seed),
+            xor_combine.crc_join_plain(parts, zcols, seed))
+
+
+def k6_bytes(entry: str, n: int, length: int) -> int:
+    """Bytes a K6 entry must move: each input read once, each output
+    written once (planes one byte an element)."""
+    return {"xor_fold": 4 * length * (n + 1),
+            "bit_planes": 4 * length + 32 * length,
+            "plane_parity_pack": 32 * length * n + 4 * length,
+            "crc_join": 4 * length * (n + 1)}[entry]
+
+
+def mesh_sharded_equal(arr, want: torch.Tensor) -> bool:
+    """Every slot's piece of a sharded result equals the same slice of
+    ``want`` (on the card)."""
+    return all(torch.equal(s.data, want[s.index]) for s in arr.shards)
+
+
+def mesh_ecb_knobs(mode: str) -> dict:
+    """The mesh knobs of phase mesh's batcher in repair mode ``mode``."""
+    return {"osd_ec_mesh_devices": MESH_SLOTS,
+            "osd_ec_mesh_width": MESH_WIDTH, "parallel_repair_mode": mode}
+
+
+async def mesh_ecb(dev, cells: np.ndarray, knobs: dict) -> dict:
+    """One ECBatcher at the OSD's shapes with ``knobs`` (the mesh's, or
+    none for the one-device batcher): every submission of ``cells``
+    encoded, MESH_ECB_CONCURRENCY at a time, then each read degraded
+    (shards 1 and 6 rebuilt)."""
+    from ceph_tpu_torch.cluster import ECBatcher
+    from ceph_tpu_torch.ec import load_codec
+    from ceph_tpu_torch.utils import config as cfg
+    from ceph_tpu_torch.utils.perf import PerfCounters
+
+    codec = load_codec(dict(MSG_PROFILE), device=dev)
+    conf = cfg.proxy()
+    conf.apply({"osd_ec_batch_target_stripes": ECB_TARGET,
+                "osd_ec_batch_window": ECB_WINDOW,
+                "osd_ec_cold_shape_bytes": 0, **knobs})
+    perf = PerfCounters("mesh" if knobs else "single")
+    ECBatcher.declare_counters(perf)
+    b = ECBatcher(perf, conf=conf)
+    sem = asyncio.Semaphore(MESH_ECB_CONCURRENCY)
+
+    async def one(call):
+        async with sem:
+            return await call()
+
+    t0 = time.perf_counter()
+    enc = await asyncio.gather(*[one(lambda c=c: b.encode_cells(codec, c))
+                                 for c in cells])
+    t_enc = time.perf_counter() - t0
+    every = [np.concatenate([c, p], axis=1) for c, (p, _) in zip(cells, enc)]
+    t0 = time.perf_counter()
+    dec = await asyncio.gather(*[one(lambda e=e: b.decode_cells(
+        codec, PRESENT, (1, 6), np.ascontiguousarray(e[:, list(PRESENT)])))
+        for e in every])
+    out = {"enc": enc, "dec": dec, "encode_s": t_enc,
+           "decode_s": time.perf_counter() - t0, "perf": b.perf.dump()}
+    b.close()
+    return out
+
+
+def mesh_ecb_check(mode: str, cells: np.ndarray, mesh: dict,
+                   single: dict) -> None:
+    """The mesh batcher's bytes and CRCs equal the one-device batcher's,
+    its degraded reads the lost cells, its CRCs the C++ core's."""
+    from ceph_tpu_torch import native
+
+    for (pm, cm), (ps, cs) in zip(mesh["enc"], single["enc"]):
+        check(np.array_equal(pm, ps) and np.array_equal(cm, cs),
+              f"mesh batcher ({mode}) encode differs from one device")
+    for c, dm, ds in zip(cells, mesh["dec"], single["dec"]):
+        check(np.array_equal(dm, ds) and np.array_equal(dm, c[:, [1, 6]]),
+              f"mesh batcher ({mode}) degraded read differs")
+    for c, (p, crcs) in zip(cells[:2], mesh["enc"][:2]):
+        want = native.crc32c_batch(np.concatenate([c, p], axis=1)
+                                   .reshape(-1, ECB_SU))
+        check(np.array_equal(crcs.reshape(-1), want),
+              f"mesh batcher ({mode}) CRCs differ from the C++ core")
+
+
+async def mesh_cluster(dev, rng, mode: str) -> dict:
+    """Phase cluster's deployment with the mesh knobs on: MESH_CL_OBJECTS
+    objects of 4 MiB written to the EC pool and read back, OSD
+    MESH_CL_KILLED killed, every object read degraded, exactly."""
+    from ceph_tpu_torch.cluster import TestCluster
+    from ceph_tpu_torch.cluster import messages as M
+    from ceph_tpu_torch.placement.osdmap import Pool
+
+    c = TestCluster(n_osds=CL_OSDS, out_interval=CL_OUT_INTERVAL, osd_conf={
+        "osd_ec_cold_shape_bytes": CL_COLD_SHAPE_BYTES,
+        "osd_ec_mesh_devices": MESH_SLOTS, "osd_ec_mesh_width": MESH_WIDTH,
+        "parallel_repair_mode": mode}, device=dev)
+    out = {}
+    await c.start()
+    try:
+        c.client.op_timeout = CL_OP_TIMEOUT_S
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="rbd_data", size=11, min_size=8,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await c.wait_active(60)
+        model = {f"rbd_data.{i:016x}": rng.bytes(CL_OBJECT_BYTES)
+                 for i in range(MESH_CL_OBJECTS)}
+        nbytes = len(model) * CL_OBJECT_BYTES
+        res = await cl_ops(c.client, [
+            (CL_EC_POOL, n, [M.osd_op("writefull", data=d)], None)
+            for n, d in model.items()])
+        cl_check(res, "mesh write")
+        out["write"] = cl_traffic(res, nbytes)
+        out["write_host_gathers"] = runtime_stats()["mesh_host_gathers"]
+        reads = [(CL_EC_POOL, n, [M.osd_op("read", offset=0, length=-1)], d)
+                 for n, d in model.items()]
+        res = await cl_ops(c.client, reads)
+        cl_check(res, "mesh read")
+        out["read"] = cl_traffic(res, nbytes)
+        await c.kill_osd(MESH_CL_KILLED)
+        await c.wait_down(MESH_CL_KILLED, timeout=30)
+        res = await cl_ops(c.client, reads)
+        cl_check(res, "mesh degraded read")
+        out["degraded_read"] = cl_traffic(res, nbytes)
+        out["osd_counters"] = {
+            k: sum(o.perf.dump()[k] for o in c.osds if o is not None)
+            for k in ("ec_mesh_encode_dispatches", "ec_mesh_decode_dispatches",
+                      "ec_decode_cold_host", "ec_batch_failures")}
+    finally:
+        await c.stop()
+    return out
+
+
+def launches_of(call) -> dict:
+    """The kernel launches one ``call()`` makes, by kernel (those it
+    launched)."""
+    from ceph_tpu_torch import kernels
+
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    call()
+    return {k.name: k.launches - before[k.name] for k in kernels.KERNELS
+            if k.launches > before[k.name]}
+
+
+def runtime_stats() -> dict:
+    from ceph_tpu_torch.parallel import runtime
+
+    return runtime.STATS.dump()
+
+
+def mesh_phase(dev, rng, card: str, cluster_lines: dict | None = None,
+               cluster: bool = True) -> dict:
+    """The multi-device data plane on a virtual mesh over the card (see the
+    MESH_* constants): K6 against its plain version at its edges; then,
+    every count set to 0, the write step over each mesh shape, collective
+    repair in both modes, the ECBatcher and phase cluster's deployment
+    with the mesh knobs on, and the multi-chip dry run, each held against
+    the one-device step (run before the counts are set to 0, so they
+    count only the mesh path's own launches); then each mesh step's time beside the one-device
+    step's and K6's times at the shapes the path gave it. ->
+    {"launches", "timed", "edge_err", "lines"}."""
+    from ceph_tpu_torch import kernels, parallel
+    from ceph_tpu_torch.models import datapath
+    from ceph_tpu_torch.ops import crc32c as crc_ops
+    from ceph_tpu_torch.ops import xor_combine
+    from ceph_tpu_torch.parallel import runtime, shard_comm
+    from ceph_tpu_torch.tools import dryrun_multichip
+
+    parallel.pin_virtual(MESH_SLOTS)
+    slots = parallel.get_devices(MESH_SLOTS, dev)
+    virtual = len({str(s.device) for s in slots}) < len(slots)
+    emit({"phase": "mesh", "step": "mesh", "slots": MESH_SLOTS,
+          "virtual": virtual, "cards": torch.cuda.device_count(),
+          "device": str(dev), "card": card,
+          "note": (f"a virtual mesh of {MESH_SLOTS} slots over one card"
+                   if virtual else f"{MESH_SLOTS} cards")})
+    lines = {}
+
+    # ---- K6 against its plain version at its edges
+    edge_err = 0
+    cases = k6_edge_cases()
+    for label, (entry, n, length) in cases.items():
+        got, want = k6_case(entry, n, length, rng, dev)
+        torch.cuda.synchronize()
+        err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
+        check(err == 0, f"K6 {label} differs from its plain version by {err}")
+        edge_err = max(edge_err, err)
+    emit({"phase": "mesh", "step": "k6_vs_plain", "cases": len(cases),
+          "max_abs_err": edge_err})
+
+    # ---- the one-device steps the mesh is held against
+    params = datapath.ECParams(k=MAIN_K, m=MAIN_M, chunk_bytes=MAIN_CHUNK)
+    data = datapath.example_batch(params, batch=MAIN_B, seed=0, device=dev)
+    parity, crcs = datapath.write_step(params, data)
+    surviving = torch.cat([data, parity], dim=1)[:, list(PRESENT)]
+    meshes = {f"{s}x{w}": parallel.make_mesh(slots, width=w)
+              for s, w in MESH_SHAPES}
+    ecb_cells = rng.integers(0, 256, (MESH_ECB_SUBMITS, MESH_ECB_STRIPES,
+                                      MAIN_K, ECB_SU), dtype=np.uint8)
+    ecb_single = asyncio.run(mesh_ecb(dev, ecb_cells, {}))
+    dry_step = dryrun_multichip.setup(MESH_SLOTS, dev)
+    dry_want = dryrun_multichip.one_device(dry_step)
+    repair_in = {}
+    for w in MESH_REPAIR_WIDTHS:
+        mesh = meshes[f"{MESH_SLOTS // w}x{w}"]
+        repair_in[("allgather", w)] = parallel.shard_placement(mesh, surviving)
+        repair_in[("psum_bits", w)] = parallel.shard_placement(
+            mesh, surviving[:MESH_PSUM_B])
+    torch.cuda.synchronize()
+
+    # ---- the mesh path, every count at 0
+    kernels.reset_counts()
+    runtime.STATS.reset()
+    t_path = time.perf_counter()
+    for key, mesh in meshes.items():
+        p, c = runtime.mesh_encode_crc_batch(mesh, params.matrix,
+                                             params.chunk_bytes, data)
+        check(mesh_sharded_equal(p, parity) and mesh_sharded_equal(c, crcs),
+              f"mesh {key} write step differs from the one-device step")
+        del p, c
+    for (method, w), surv in repair_in.items():
+        mesh = surv.mesh
+        out = shard_comm.distributed_repair(mesh, params.matrix, MAIN_K,
+                                            list(PRESENT), surv, method)
+        runtime.finish(mesh)
+        check(mesh_sharded_equal(out, data[:surv.shape[0]]),
+              f"collective repair {method} width {w} differs from "
+              "repair_step")
+        del out
+    ecb = {mode: asyncio.run(mesh_ecb(dev, ecb_cells, mesh_ecb_knobs(mode)))
+           for mode in shard_comm.METHODS}
+    for mode, res in ecb.items():
+        mesh_ecb_check(mode, ecb_cells, res, ecb_single)
+        d = res["perf"]
+        check(d["ec_mesh_encode_dispatches"] > 0
+              and d["ec_mesh_decode_dispatches"] > 0,
+              f"mesh batcher ({mode}) dispatches {d}")
+        lines[f"ecbatch_{mode}"] = line = {
+            "phase": "mesh", "step": f"ecbatch_{mode}",
+            "submissions": MESH_ECB_SUBMITS, "stripes": MESH_ECB_STRIPES,
+            **{k: d[k] for k in ("ec_batches", "ec_decode_batches",
+                                 "ec_mesh_encode_dispatches",
+                                 "ec_mesh_decode_dispatches")},
+            "encode_GiB_per_s": {
+                k: MESH_ECB_SUBMITS * MESH_ECB_STRIPES * MAIN_K * ECB_SU
+                / 2**30 / r["encode_s"] for k, r in (("mesh", res),
+                                                    ("single", ecb_single))},
+            "decode_s": {"mesh": res["decode_s"],
+                         "single": ecb_single["decode_s"]},
+            "card": card}
+        emit(line)
+    del ecb, ecb_single
+    gathers = runtime_stats()["mesh_host_gathers"]
+    check(gathers == 0, f"the mesh batcher gathered {gathers} times")
+    if cluster:
+        cl = asyncio.run(mesh_cluster(dev, rng, "allgather"))
+        stats = runtime_stats()
+        check(cl["write_host_gathers"] == 0 and stats["mesh_host_gathers"] == 0,
+              f"mesh cluster host gathers {stats['mesh_host_gathers']}")
+        check(stats["mesh_encode_dispatches"] > 0
+              and stats["mesh_decode_dispatches"] > 0,
+              f"mesh cluster dispatches {stats}")
+        check(cl["osd_counters"]["ec_batch_failures"] == 0
+              and cl["osd_counters"]["ec_decode_cold_host"] == 0,
+              f"mesh cluster counters {cl['osd_counters']}")
+        base = cluster_lines or {}
+        lines["cluster"] = line = {
+            "phase": "mesh", "step": "cluster", "objects": MESH_CL_OBJECTS,
+            "killed": MESH_CL_KILLED, "width": MESH_WIDTH,
+            "mode": "allgather", **{k: cl[k] for k in (
+                "write", "read", "degraded_read", "osd_counters")},
+            "mesh_stats": {k: v for k, v in stats.items()
+                           if k != "mesh_stripes_per_device"},
+            "phase_cluster": {s: {k: base[s].get(k) for k in (
+                "GiB_per_s", "lat_p50_ms", "lat_p99_ms")}
+                for s in ("write", "read", "degraded_read") if s in base},
+            "card": card}
+        emit(line)
+    dry = dryrun_multichip.on_mesh(dry_step, dry_want)
+    lines["dryrun"] = {"phase": "mesh", "step": "dryrun", **dry, "card": card}
+    emit(lines["dryrun"])
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    emit({"phase": "mesh_launches", **launches, "path_s": path_s})
+    for name in ("gf_matmul", "crc32c", *K6_ENTRIES):
+        check(launches[name] > 0, f"the mesh path launched {name} "
+                                  f"{launches[name]} times")
+
+    # ---- times: each mesh step beside the one-device step
+    write_ms = time_ms(lambda: datapath.write_step(params, data), reps=5)
+    for key, mesh in meshes.items():
+        def call(mesh=mesh):
+            runtime.mesh_encode_crc_batch(mesh, params.matrix,
+                                          params.chunk_bytes, data)
+        per_call = launches_of(call)
+        ms = time_ms(call, reps=5, warmup=1)
+        lines[f"write_{key}"] = line = {
+            "phase": "mesh", "step": "write", "mesh": key, "ms": ms,
+            "one_device_ms": write_ms, "stripes": MAIN_B,
+            "launches_per_call": per_call, "card": card}
+        emit(line)
+    repair_ms = time_ms(lambda: datapath.repair_step(params, PRESENT,
+                                                     surviving), reps=5)
+    for (method, w), surv in repair_in.items():
+        mesh = surv.mesh
+
+        def call(mesh=mesh, surv=surv, method=method):
+            shard_comm.distributed_repair(mesh, params.matrix, MAIN_K,
+                                          list(PRESENT), surv, method)
+            runtime.finish(mesh)
+        per_call = launches_of(call)
+        ms = time_ms(call, reps=3, warmup=1)
+        one_ms = repair_ms if surv.shape[0] == MAIN_B else time_ms(
+            lambda b=surv.shape[0]: datapath.repair_step(
+                params, PRESENT, surviving[:b]), reps=5)
+        lines[f"repair_{method}_{w}"] = line = {
+            "phase": "mesh", "step": "repair", "method": method, "width": w,
+            "mesh": f"{MESH_SLOTS // w}x{w}", "stripes": surv.shape[0],
+            "ms": ms, "one_device_repair_step_ms": one_ms,
+            "launches_per_call": per_call, "card": card}
+        emit(line)
+    del repair_in
+
+    # ---- K6 alone at the shapes the mesh path gave it
+    timed = {}
+    w = max(MESH_REPAIR_WIDTHS)
+    s = MESH_SLOTS // w
+    fold_len = MAIN_B // s * MAIN_K * params.words
+    psum_len = MESH_PSUM_B // s * MAIN_K * params.words
+    join_len = MAIN_B // s * (MAIN_K + MAIN_M)
+    shapes = {"xor_fold": (w, fold_len), "bit_planes": (1, psum_len),
+              "plane_parity_pack": (w, psum_len),
+              "crc_join": (w, join_len)}
+    for entry, (n, length) in shapes.items():
+        if entry == "plane_parity_pack":
+            planes = torch.randint(0, 2, (n, 32, length), dtype=torch.uint8,
+                                   device=dev)
+            kernel = lambda planes=planes: xor_combine.plane_parity_pack(planes)
+            plain = lambda planes=planes: \
+                xor_combine.plane_parity_pack_plain(planes)
+        elif entry == "crc_join":
+            parts = torch.randint(-2**31, 2**31, (n, length), dtype=torch.int32,
+                                  device=dev)
+            zcols = crc_ops.segment_shift_columns(params.words, n)
+            seed = crc_ops.zeros_shift(crc_ops.CRC_SEED, params.chunk_bytes)
+            kernel = lambda parts=parts: xor_combine.crc_join(parts, zcols,
+                                                              seed)
+            plain = lambda parts=parts: xor_combine.crc_join_plain(
+                parts, zcols, seed)
+        else:
+            x = torch.randint(-2**31, 2**31, (length,) if entry ==
+                              "bit_planes" else (n, length),
+                              dtype=torch.int32, device=dev)
+            fn = getattr(xor_combine, entry)
+            pfn = getattr(xor_combine, f"{entry}_plain")
+            kernel = lambda x=x, fn=fn: fn(x)
+            plain = lambda x=x, pfn=pfn: pfn(x)
+        err = max_abs_err(kernel().to(torch.int32), plain().to(torch.int32))
+        check(err == 0, f"K6 {entry} at the mesh shape differs by {err}")
+        ms, plain_ms = time_ms(kernel, reps=10), time_ms(plain, reps=3,
+                                                         warmup=1)
+        b_ms, b_by = bound(k6_bytes(entry, n, length), 0)
+        prof = profile_steps(kernel)
+        timed[f"k6_{entry}"] = {"ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "max_abs_err": err,
+                                "device_ms": device_ms(prof), "n": n,
+                                "words": length}
+        emit({"phase": "time", "what": f"k6_{entry}",
+              **timed[f"k6_{entry}"],
+              "share_of_bound": b_ms / ms,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}, "card": card})
+
+    # ---- K1 and K2 alone at one slot's share of the 2 x 4 mesh: the
+    # repair's column block on its resident survivors, the write step's
+    # word segment and the CRCs of its cells' segments
+    from ceph_tpu_torch.device import words_to_tensor
+    from ceph_tpu_torch.ops import gf8, rs
+
+    bs, ws = MAIN_B // s, params.words // w
+
+    def words(shape):
+        return words_to_tensor(rng.integers(0, 2**32, shape,
+                                            dtype=np.uint32), dev)
+
+    rblock = rs.column_blocks(
+        gf8.decode_matrix(params.matrix, MAIN_K, list(PRESENT)), w)[0]
+    surv = words((bs, MAIN_K // w, params.words))
+    seg, pseg = words((bs, MAIN_K, ws)), words((bs, MAIN_M, ws))
+    cells = torch.cat([seg, pseg], dim=1)
+    cases = {
+        "gf_mesh_repair": (lambda: rs.gf_matmul(rblock, surv),
+                           lambda: rs.gf_matmul_plain(rblock, surv),
+                           gf_work(bs, MAIN_K, MAIN_K // w, params.words)),
+        "gf_mesh_write": (lambda: rs.gf_matmul(params.matrix, seg),
+                          lambda: rs.gf_matmul_plain(params.matrix, seg),
+                          gf_work(bs, MAIN_M, MAIN_K, ws)),
+        "crc_mesh_write": (lambda: crc_ops.crc0_cells(seg, pseg),
+                           lambda: crc_ops.crc0_words_plain(cells),
+                           crc_work(bs * (MAIN_K + MAIN_M), ws))}
+    for key, (kernel, plain, (nbytes, ops)) in cases.items():
+        err = max_abs_err(kernel(), plain())
+        check(err == 0, f"{key}: kernel and plain differ by {err}")
+        ms, plain_ms = time_ms(kernel, reps=10), time_ms(plain, reps=3,
+                                                         warmup=1)
+        b_ms, b_by = bound(nbytes, ops)
+        prof = profile_steps(kernel)
+        timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err,
+                      "device_ms": device_ms(prof)}
+        emit({"phase": "time", "what": key, **timed[key],
+              "share_of_bound": b_ms / ms,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}, "card": card})
+    return {"launches": launches, "timed": timed, "edge_err": edge_err,
+            "lines": lines}
 
 
 def main() -> int:
@@ -3749,6 +4294,15 @@ def main() -> int:
         check(pr["launches"][key] > 0,
               f"the proc phase launched {key} {pr['launches'][key]} times")
     seconds["proc"] = time.perf_counter() - t0
+
+    # ---- phase 14: the multi-device data plane (parallel/) on a virtual
+    # mesh of 8 slots over the card: K1 and K2 on every slot, the copies
+    # between slots and K6's XOR combines
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, rng, smi.splitlines()[0],
+                      cluster_lines=cl["lines"])
+    timed.update(mesh["timed"])
+    seconds["mesh"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -3770,6 +4324,7 @@ def main() -> int:
         paths["msg"] = wire["launches"][name]
         paths["cluster"] = cl["launches"][name]
         paths["proc"] = pr["launches"][name]
+        paths["mesh"] = mesh["launches"][name]
         return paths
 
     table = [
@@ -3784,13 +4339,16 @@ def main() -> int:
                             timed["gf_lrc_encode"]["max_abs_err"],
                             timed["gf_clay_round"]["max_abs_err"],
                             *(timed[f"gf_{t}_{s}"]["max_abs_err"]
-                              for t in CL_TIMED for s in ("write", "decode"))),
+                              for t in CL_TIMED for s in ("write", "decode")),
+                            timed["gf_mesh_repair"]["max_abs_err"],
+                            timed["gf_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("gf_matmul"),
          "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
                           "gf_batch_decode", "gf_lrc_encode",
                           "gf_clay_round",
                           *(f"gf_{t}_{s}" for t in CL_TIMED
-                            for s in ("write", "decode")))},
+                            for s in ("write", "decode")),
+                          "gf_mesh_repair", "gf_mesh_write")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:231",
@@ -3803,12 +4361,14 @@ def main() -> int:
                             *(timed[f"crc_store_{k}"]["max_abs_err"]
                               for k in ST_SHAPES),
                             *(timed[f"crc_{t}_write"]["max_abs_err"]
-                              for t in CL_TIMED)),
+                              for t in CL_TIMED),
+                            timed["crc_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
                           "crc_batch_write", "crc_lrc_encode",
                           *(f"crc_store_{k}" for k in ST_SHAPES),
-                          *(f"crc_{t}_write" for t in CL_TIMED))},
+                          *(f"crc_{t}_write" for t in CL_TIMED),
+                          "crc_mesh_write")},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",
          "replaces": "ceph_tpu/ops/crush.py:255",
@@ -3821,7 +4381,8 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["straw2"],
                               "cluster": cl["launches"]["straw2"],
-                              "proc": pr["launches"]["straw2"]},
+                              "proc": pr["launches"]["straw2"],
+                              "mesh": mesh["launches"]["straw2"]},
          "shapes": shapes("straw2_config5", "straw2_65536")},
         {"name": "crush_rule", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crush_rule.cu",
@@ -3837,7 +4398,8 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["crush_rule"],
                               "cluster": cl["launches"]["crush_rule"],
-                              "proc": pr["launches"]["crush_rule"]},
+                              "proc": pr["launches"]["crush_rule"],
+                              "mesh": mesh["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
                             for s in ("full", "65536", "64")))},
         {"name": "gf2_xor", "route": "cuda",
@@ -3852,7 +4414,16 @@ def main() -> int:
                               "cluster": cl["launches"]["gf2_xor"],
                               "proc": pr["launches"]["gf2_xor"]},
          "shapes": shapes("gf2_encode", "gf2_decode")},
-    ]
+    ] + [
+        {"name": entry, "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/xor_combine.cu",
+         "replaces": K6_REPLACES[entry],
+         "launches": mesh["launches"][entry], **timed[f"k6_{entry}"],
+         "max_abs_err": max(mesh["edge_err"],
+                            timed[f"k6_{entry}"]["max_abs_err"]),
+         "library_ms": None,
+         "launches_by_path": {"mesh": mesh["launches"][entry]}}
+        for entry in K6_ENTRIES]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

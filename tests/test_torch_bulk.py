@@ -328,6 +328,15 @@ def test_widest_bucket_below_a_take():
     assert [comp.widest(b) for b in (-6, -5, -2)] == [40, 2, 3]
 
 
+def test_plain_engine_edge_maps_cover_both_rules():
+    """chip_smoke.py holds the plain engine's draw count against the
+    kernel's on the maps of PL_EDGE_PLAIN: each is an edge map, and they
+    take both a firstn and an indep rule."""
+    edges = chip_smoke.rule_edge_maps()
+    assert set(chip_smoke.PL_EDGE_PLAIN) <= set(edges)
+    assert {edges[name][1] for name in chip_smoke.PL_EDGE_PLAIN} == {0, 1}
+
+
 def _u32(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
                             .view(np.int32))

@@ -220,15 +220,32 @@ def test_thrash_runner_schedule_only_equals_the_reference(capsys):
                                         ("--proc", "item 4")])
 def test_thrash_runner_refuses_what_the_port_lacks(flag, item, monkeypatch,
                                                    capsys):
-    """``--chip-loss`` raises until ROADMAP §1 item 6 lands. Item 4 (the
-    process tier) has landed: ``--proc`` is no longer refused and goes to
-    the process-tier arm (``_run_proc``, driven for real by
+    """The runner refuses neither flag any more. ROADMAP §1 item 6 (the
+    multi-device data plane) has landed: ``--chip-loss`` pins a virtual
+    mesh of ``--chips`` slots and goes to the in-process arm (``_run``,
+    driven for real by ``test_torch_faults_cluster.py``'s chip-loss
+    thrash). Item 4 (the process tier) has landed: ``--proc`` goes to the
+    process-tier arm (``_run_proc``, driven for real by
     ``test_torch_fabric_cluster.py``), never to the in-process one."""
+    from ceph_tpu_torch import parallel
     from ceph_tpu_torch.tools import thrash
 
     if flag == "--chip-loss":
-        with pytest.raises(NotImplementedError, match=item):
-            _thrash(["--seed", "1", "--device", "cpu", flag])
+        seen = []
+
+        async def run(args, max_unavail):
+            seen.append((args.chip_loss, args.chips, args.mesh_width,
+                         args.device, parallel.virtual_slots() >= args.chips))
+            return {"passed": True}
+
+        async def run_proc(args, max_unavail):
+            raise AssertionError(f"{flag} ({item}) went to the process arm")
+
+        monkeypatch.setattr(thrash, "_run", run)
+        monkeypatch.setattr(thrash, "_run_proc", run_proc)
+        assert _thrash(["--seed", "1", "--device", "cpu", flag]) == 0
+        assert seen == [(True, 8, 2, "cpu", True)]
+        assert json.loads(capsys.readouterr().out) == {"passed": True}
         return
     seen = []
 

@@ -613,26 +613,59 @@ def test_cold_shape_default_is_the_references():
                                    {"parallel_repair_mode": "psum_bits"}])
 @pytest.mark.parametrize("as_dict", [False, True])
 def test_mesh_knobs_raise(knobs, as_dict):
+    """Each knob set constructs a batcher and dispatches over the
+    virtual CPU mesh (``pin_virtual(8)``) exactly where the JAX batcher
+    resolves a mesh for the same conf (a plain dict without
+    ``osd_ec_mesh_width`` resolves none in either package), with the
+    one-device batcher's bytes and CRCs. The same knobs with a mesh that
+    cannot be had (4096 slots, past the pinned 8 and the machine's
+    cards) raise at dispatch: the port never drops to one device."""
+    from ceph_tpu_torch import parallel
+
+    parallel.pin_virtual(8)
     conf = dict(knobs) if as_dict else make_conf(**knobs)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        ECBatcher(conf=conf)
+    jconf = dict(knobs) if as_dict else jcfg.proxy()
+    if not as_dict:
+        jconf.apply(knobs)
+    codec = codec_for()
+    cells = rand_cells(6, seed=len(knobs))
+
+    async def t():
+        b, single = ECBatcher(conf=conf), ECBatcher()
+        pm, cm = await b.encode_cells(codec, cells)
+        ps, cs = await single.encode_cells(codec, cells)
+        assert np.array_equal(pm, ps) and np.array_equal(cm, cs)
+        every = np.concatenate([cells, ps], axis=1)
+        surv = np.ascontiguousarray(every[:, [0, 2, 4]])
+        got = await b.decode_cells(codec, (0, 2, 4), (1,), surv)
+        assert np.array_equal(got[:, 0], cells[:, 1])
+        return b
+
+    b = asyncio.run(asyncio.wait_for(t(), 120))
+    assert (b.mesh() is None) == (JECBatcher(conf=jconf).mesh() is None)
+    big = {**knobs, "osd_ec_mesh_devices": 4096, "osd_ec_mesh_width": 2}
+    refused = ECBatcher(conf=dict(big) if as_dict else make_conf(**big))
+    with pytest.raises(RuntimeError, match="pin_virtual"):
+        refused._encode_sync(codec, cells)
 
 
 def test_mesh_knob_set_at_runtime_fails_the_dispatch():
-    """A mesh knob turned on after construction fails the dispatch (the
-    op sees the batcher's failure), never a quiet one-device run."""
+    """An oversized mesh count set at run time fails the dispatch (the
+    op sees the batcher's failure), never a quiet one-device run: the
+    batcher resolves its mesh at the first dispatch, and a mesh that
+    cannot be had raises there and is not cached."""
     conf = make_conf(osd_ec_mesh_devices=1)
     perf = make_perf()
     codec = codec_for()
 
     async def t():
         b = ECBatcher(perf, conf=conf)
-        assert b.mesh() is None
-        conf.set("osd_ec_mesh_devices", 4)
+        conf.set("osd_ec_mesh_devices", 4096)
         with pytest.raises(RuntimeError, match="batched EC dispatch"):
             await b.encode_cells(codec, _one_stripe(5))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="pin_virtual"):
             b._encode_sync(codec, _one_stripe(5))
+        assert not b._mesh_resolved
 
     run(t())
     assert perf.dump()["ec_batch_failures_dispatch"] == 1

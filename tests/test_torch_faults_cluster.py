@@ -1,8 +1,9 @@
 """The cluster cases of ``tests/test_faults.py`` on the port
 (``ceph_tpu_torch``): every case that builds a cluster or reads the PG
-or the client, the mon-quorum case among them (those that need the
-multi-device data plane wait for ROADMAP §1 item 6), each cluster on
-``device="cpu"`` (the kernels' plain versions). The reference's cases
+or the client, the mon-quorum case among them and the chip-loss thrash
+over the multi-device data plane (a virtual mesh of 8 CPU slots,
+``pin_virtual(8)``), each cluster on ``device="cpu"`` (the kernels'
+plain versions). The reference's cases
 are copied with only their imports and device changed. Tolerance: exact,
 as in the reference.
 """
@@ -897,6 +898,52 @@ def test_chip_loss_fault_scopes_to_owning_osds():
         await c.stop()
 
     run(t())
+
+
+def test_short_chip_loss_thrash_converges_over_mesh():
+    """Tier-1 chip-loss thrash: the serving mesh on (device engine,
+    collective repair) over a virtual mesh of 8 CPU slots
+    (``pin_virtual(8)``), a seeded ~4 s schedule that includes mesh-chip
+    losses, byte-exact convergence — the small sibling of the 20 s CLI
+    acceptance run (``ceph_tpu_torch.tools.thrash --chip-loss``). The
+    reference's bounds, as they are."""
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.parallel import runtime
+
+    parallel.pin_virtual(8)
+
+    async def t():
+        c = TestCluster(n_osds=5, fault_seed=4242, osd_conf={
+            "osd_ec_mesh_devices": 8,
+            "osd_ec_mesh_width": 2,
+            "parallel_repair_mode": "allgather",
+        }, device="cpu")
+        await c.start()
+        await c.client.create_pool(
+            Pool(id=2, name="ec", size=5, min_size=3, pg_num=8,
+                 crush_rule=1, type="erasure",
+                 ec_profile=dict(EC_PROFILE)))
+        await c.wait_active(20)
+        c.client.op_timeout = 150.0
+        runtime.STATS.reset()
+        thr = Thrasher(c, 2, seed=4242, duration=4.0, max_unavail=2,
+                       bitrot_p=0.0, partitions=False, n_objects=6,
+                       obj_size=16 << 10, writers=3,
+                       settle_timeout=90.0, chip_loss=True, n_chips=8)
+        assert thr.schedule == build_schedule(
+            4242, 4.0, 5, max_unavail=2, partitions=False,
+            chip_loss=True, n_chips=8)
+        assert any(e.kind == "chip_loss" for e in thr.schedule)
+        verdict = await thr.run()
+        assert verdict["passed"], verdict
+        assert verdict["writes_acked"] > 0
+        assert any(k == "chip_loss" for _, k, _ in verdict["events"])
+        await c.stop()
+
+    run(t(), timeout=300)
+    # the thrash actually rode the mesh
+    assert runtime.STATS.dump()["mesh_encode_dispatches"] > 0
+    assert runtime.STATS.dump()["mesh_host_gathers"] == 0
 
 
 def test_plane_store_fault_rearms_on_revive():

@@ -645,3 +645,63 @@ def chip_smoke_conf(**knobs):
     conf = config.proxy()
     conf.apply(knobs)
     return conf
+
+
+# ------------------------------------------------------ K6 and the mesh
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.k6_edge_cases()))
+def test_k6_kernel_at_the_edges(cuda, case):
+    entry, n, length = chip_smoke.k6_edge_cases()[case]
+    kernel = getattr(kernels, entry.upper())
+    before = kernel.launches
+    got, want = chip_smoke.k6_case(entry, n, length,
+                                   np.random.default_rng(n * 131 + length),
+                                   cuda)
+    assert kernel.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_k6_wrappers_refuse_bad_inputs(cuda):
+    x = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.xor_fold(x.to(torch.int64))
+    with pytest.raises(ValueError, match="not \\(n, 32"):
+        kernels.plane_parity_pack(torch.zeros((1, 31, 8), dtype=torch.uint8,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="do not fit"):
+        kernels.crc_join(x, torch.zeros((3, 32), dtype=torch.int32,
+                                        device=cuda), 0)
+
+
+@pytest.mark.parametrize("method", ["allgather", "psum_bits"])
+def test_mesh_encode_and_repair_on_the_card_equal_one_device(cuda, method):
+    """A 2 x 4 virtual mesh over the card: the mesh write step equals the
+    one-device write step and collective repair equals the data, slot by
+    slot, with K1, K2 and K6 launched on the way."""
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.parallel import runtime, shard_comm
+
+    parallel.pin_virtual(8)
+    mesh = parallel.make_mesh(parallel.get_devices(8, cuda), width=4)
+    params = datapath.ECParams(k=8, m=3, chunk_bytes=4096 * 3)
+    data = datapath.example_batch(params, batch=16, device=cuda)
+    parity, crcs = datapath.write_step(params, data)
+    kernels.reset_counts()
+    p, c = runtime.mesh_encode_crc_batch(mesh, params.matrix,
+                                         params.chunk_bytes, data)
+    assert all(torch.equal(s.data, parity[s.index]) for s in p.shards)
+    assert all(torch.equal(s.data, crcs[s.index]) for s in c.shards)
+    present = [0, 2, 3, 4, 5, 7, 8, 9]
+    surv = torch.cat([data, parity], dim=1)[:, present]
+    out = shard_comm.distributed_repair(mesh, params.matrix, 8, present,
+                                        surv, method)
+    runtime.finish(mesh)
+    assert all(torch.equal(s.data, data[s.index]) for s in out.shards)
+    assert kernels.GF_MATMUL.launches == 16
+    assert kernels.CRC32C.launches == 8 and kernels.CRC_JOIN.launches == 8
+    if method == "allgather":
+        assert kernels.XOR_FOLD.launches == 8
+    else:
+        assert kernels.BIT_PLANES.launches == 8
+        assert kernels.PLANE_PARITY_PACK.launches == 8

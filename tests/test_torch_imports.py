@@ -126,8 +126,9 @@ def test_process_tier_module_is_the_ports_own(module):
 def test_process_tier_with_no_device_and_no_card_raises(monkeypatch,
                                                         tmp_path):
     """A ProcCluster resolves its device when it is built, like a
-    TestCluster; the MDS role and ``--chip-loss`` raise (their modules
-    are not ported), while ``--proc`` runs."""
+    TestCluster; the MDS role raises (its module is not ported), while
+    ``--proc`` runs; ``--chip-loss`` (ported with ``parallel/``) with no
+    device and no card raises, as the in-process arm does."""
     import asyncio
 
     from ceph_tpu_torch.cluster.procstart import ProcCluster
@@ -138,8 +139,8 @@ def test_process_tier_with_no_device_and_no_card_raises(monkeypatch,
         ProcCluster(str(tmp_path / "a"), n_osds=3)
     with pytest.raises(RuntimeError, match="CUDA"):
         thrash.main(["--seed", "1", "--proc"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        thrash.main(["--seed", "1", "--chip-loss", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        thrash.main(["--seed", "1", "--chip-loss"])
     c = ProcCluster(str(tmp_path / "b"), n_osds=3, device="cpu")
     assert c.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -177,3 +178,40 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+MESH_TIER = ("ceph_tpu_torch.parallel", "ceph_tpu_torch.parallel.runtime",
+             "ceph_tpu_torch.parallel.shard_comm",
+             "ceph_tpu_torch.ops.xor_combine",
+             "ceph_tpu_torch.tools.dryrun_multichip",
+             "ceph_tpu_torch.tools.thrash")
+
+
+@pytest.mark.parametrize("module", MESH_TIER)
+def test_mesh_tier_module_is_the_ports_own(module):
+    """The multi-device data plane's modules and its two tools are among
+    the port's (so the subprocess and static scans above cover them), and
+    none of them names JAX or the JAX package."""
+    assert module in _port_modules()
+    rel = module.replace(".", "/")
+    path = ROOT / (rel + ".py")
+    if not path.exists():
+        path = ROOT / rel / "__init__.py"
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ceph_tpu"), name
+
+
+def test_a_mesh_with_no_device_and_no_card_raises(monkeypatch):
+    """With no device named and no card, a mesh, the dry run and the
+    serving mesh raise instead of running on the CPU."""
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.parallel import runtime
+    from ceph_tpu_torch.tools import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.get_devices(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runtime.serving_mesh(8, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip.dryrun_multichip(2)
