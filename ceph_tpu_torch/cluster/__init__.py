@@ -20,8 +20,8 @@ port's:
   the reference); ``snaps``, ``faults``, ``scheduler``, ``reserver``,
   ``optracker``, ``hedge`` and ``pglog`` are the tier's leaves.
 
-The MDS role of the process tier needs ``services/`` (ROADMAP §1 item
-7) and raises.
+The MDS role of the process tier needs ``services/mds.py``, which the
+port takes in its next slice (ROADMAP §1 item 7), and raises.
 """
 from .ecbatch import FLUSH_REASONS, ECBatcher, codec_profile_key  # noqa: F401
 from .messages import *  # noqa: F401,F403

@@ -32,9 +32,8 @@ this process, ``{"reset": true}`` sets them to 0) and ``device status``
 (its CUDA context, card and card memory). A WalStore OSD takes its
 checkpoint threshold from ``walstore_compact_bytes`` (the reference's
 daemon leaves the store's default, which is the option's default). The
-MDS role needs
-``services/``, which the port has not taken yet (ROADMAP §1 item 7),
-and raises.
+MDS role needs ``services/mds.py``, which the port takes in its next
+slice (ROADMAP §1 item 7), and raises.
 """
 from __future__ import annotations
 
@@ -215,10 +214,11 @@ async def _amain(args, startup: dict) -> None:
                          hb_interval=args.hb_interval, conf=conf,
                          device=args.device)
     elif args.role == "mds":
-        # metadata daemon (src/ceph_mds.cc main role): needs services/
+        # metadata daemon (src/ceph_mds.cc main role): needs
+        # services/mds.py
         raise NotImplementedError(
-            "the mds role needs services/mds.py, which the port has not "
-            "taken yet (ROADMAP §1 item 7)")
+            "the mds role needs services/mds.py, which the port takes in "
+            "its next slice (ROADMAP §1 item 7)")
     else:
         raise SystemExit(f"unknown role {args.role!r}")
 

@@ -13,7 +13,8 @@ on the admin socket next to the host's own status/health verbs.
 Health mirrors the reference's checks it can see: OSD_DOWN (map),
 PG_NOT_ACTIVE (reports), MGR_STALE_REPORTS (silence).
 
-ceph_tpu_torch's own copy of ``ceph_tpu/cluster/mgr.py``.
+ceph_tpu_torch's own copy of ``ceph_tpu/cluster/mgr.py``. ``device``
+(new, last) is handed to the RADOS clients its modules build.
 """
 from __future__ import annotations
 
@@ -33,9 +34,12 @@ HEALTH_ERR = "HEALTH_ERR"
 
 class MgrLite(ModuleHost):
     def __init__(self, bus, mon, stale_secs: float = 5.0,
-                 builtin_modules: bool = True):
+                 builtin_modules: bool = True, device=None):
         ModuleHost.__init__(self)
         self.bus = bus
+        #: where the RADOS clients of modules (rgw_lc) run their placement
+        #: batches; None is the card, resolved when a module builds one
+        self.device = device
         self.mon = mon
         self.name = "mgr"
         self.stale_secs = stale_secs

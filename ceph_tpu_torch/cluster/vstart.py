@@ -105,7 +105,7 @@ class TestCluster:
             ]
         self.osds: list[OSDLite | None] = [None] * n_osds
         self.hb_interval = hb_interval
-        self.mgr = MgrLite(self.bus, _LeaderRef(self))
+        self.mgr = MgrLite(self.bus, _LeaderRef(self), device=self.device)
         self.client = RadosClient(self.bus, device=self.device)
 
     @property

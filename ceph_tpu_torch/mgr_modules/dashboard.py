@@ -11,8 +11,7 @@ OSD/pool/PG tables, per-OSD op counters), ``GET
 option ``port`` (0 = ephemeral; the bound address lands on
 ``self.addr`` for tests/tooling).
 
-ceph_tpu_torch's own copy of ``ceph_tpu/mgr_modules/dashboard.py``, with
-its own copy of the ``HttpFrontend`` it imports from ``services/rgw.py``.
+ceph_tpu_torch's own copy of ``ceph_tpu/mgr_modules/dashboard.py``.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import html
 import json
 
 from ..cluster.mgr_module import MgrModule
+from ..services.rgw import HttpFrontend
 
 _PAGE = """<!DOCTYPE html>
 <html><head><meta charset="utf-8">
@@ -48,88 +48,6 @@ _PAGE = """<!DOCTYPE html>
 <table><tr><th>osd</th><th>up</th><th>weight</th><th>ops</th></tr>
 {osds}</table>
 </body></html>"""
-
-
-# A copy of ``ceph_tpu/services/rgw.py``'s ``HttpFrontend``: the port has
-# no ``services/`` yet (ROADMAP §1 item 7). The import moves back once
-# rgw is ported.
-class HttpFrontend:
-    """Shared asyncio HTTP/1.1 server plumbing (rgw_asio_frontend
-    role): request framing + keep-alive; dialects (S3 XML, Swift)
-    subclass and implement ``_handle``."""
-
-    async def start(self, host: str = "127.0.0.1", port: int = 0):
-        self._writers: set[asyncio.StreamWriter] = set()
-        self._server = await asyncio.start_server(self._conn, host, port)
-        self.port = self._server.sockets[0].getsockname()[1]
-        return host, self.port
-
-    async def stop(self) -> None:
-        if self._server:
-            self._server.close()
-            # sever live keep-alive connections: wait_closed() blocks
-            # on every open handler, and a client that parked an idle
-            # connection (urllib holding a response object, a browser
-            # pool) would hang shutdown forever otherwise
-            for w in list(getattr(self, "_writers", ())):
-                try:
-                    w.close()
-                except Exception:
-                    pass
-            await self._server.wait_closed()
-
-    async def _handle(self, method: str, target: str, headers: dict,
-                      body: bytes) -> tuple[int, dict, bytes]:
-        raise NotImplementedError
-
-    async def _conn(self, reader: asyncio.StreamReader,
-                    writer: asyncio.StreamWriter) -> None:
-        self._writers.add(writer)
-        try:
-            await self._serve_conn(reader, writer)
-        finally:
-            self._writers.discard(writer)
-
-    async def _serve_conn(self, reader: asyncio.StreamReader,
-                          writer: asyncio.StreamWriter) -> None:
-        try:
-            while True:
-                line = await reader.readline()
-                if not line:
-                    return
-                method, target, _ = line.decode().split(" ", 2)
-                headers = {}
-                while True:
-                    h = await reader.readline()
-                    if h in (b"\r\n", b"\n", b""):
-                        break
-                    k, v = h.decode().split(":", 1)
-                    headers[k.strip().lower()] = v.strip()
-                body = b""
-                n = int(headers.get("content-length", "0"))
-                if n:
-                    body = await reader.readexactly(n)
-                status, rheaders, rbody = await self._handle(
-                    method, target, headers, body)
-                reason = {200: "OK", 201: "Created", 202: "Accepted",
-                          204: "No Content", 404: "Not Found",
-                          400: "Bad Request", 401: "Unauthorized",
-                          403: "Forbidden",
-                          409: "Conflict"}.get(status, "Error")
-                head = [f"HTTP/1.1 {status} {reason}"]
-                rheaders.setdefault("content-length", str(len(rbody)))
-                rheaders.setdefault("connection", "keep-alive")
-                for k, v in rheaders.items():
-                    head.append(f"{k}: {v}")
-                payload = b"" if method == "HEAD" else rbody
-                writer.write(("\r\n".join(head) + "\r\n\r\n").encode()
-                             + payload)
-                await writer.drain()
-        except (asyncio.IncompleteReadError, ConnectionError,
-                ValueError):
-            pass
-        finally:
-            writer.close()
 
 
 class _Frontend(HttpFrontend):

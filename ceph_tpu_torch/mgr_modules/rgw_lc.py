@@ -3,9 +3,8 @@ src/rgw/rgw_lc.cc RGWLC worker role, hosted on the mgr tick instead of
 inside radosgw). Point it at the RGW pool with the ``pool`` module
 option; each serve tick runs one lc_process pass.
 
-ceph_tpu_torch's own copy of ``ceph_tpu/mgr_modules/rgw_lc.py``. The
-port has no ``services/`` yet (ROADMAP §1 item 7), so a pass raises
-``NotImplementedError`` where the reference builds its ``RGWLite``.
+ceph_tpu_torch's own copy of ``ceph_tpu/mgr_modules/rgw_lc.py``. Its
+client runs on the mgr host's ``device``.
 """
 from __future__ import annotations
 
@@ -25,9 +24,9 @@ class Module(MgrModule):
     ]
 
     def _rgw(self, pool_id: int):
-        raise NotImplementedError(
-            "rgw_lc needs services/rgw.py, which the port has not taken "
-            "yet (ROADMAP §1 item 7)")
+        from ..services.rgw import RGWLite
+
+        return RGWLite(self._host_client(), pool_id)
 
     def _host_client(self):
         # the mgr host's bus carries a client entity for module IO
@@ -35,7 +34,8 @@ class Module(MgrModule):
             from ..cluster.client import RadosClient
 
             self._client = RadosClient(self._host.bus,
-                                       name="client.mgr-lc")
+                                       name="client.mgr-lc",
+                                       device=self._host.device)
             self._connected = False
         return self._client
 

@@ -115,6 +115,32 @@ latency p50/p99, kernel launches, calls of the rs byte API, batches and
 placement counters; the write step runs under torch.profiler for the
 card's busy share.
 
+Phase ``services`` drives the client services (``osdc/``, ``services/``)
+on phase ``cluster``'s deployment, built on the loop of a
+``ClusterLoopThread``: RBD and RGW on the EC pool must raise EOPNOTSUPP
+(they keep omap); ``fs``: FSLite with its metadata on the replicated pool
+and its data on the EC pool writes a 1 GiB file in 4 MiB writes, reads it
+back, takes 4 KiB random overwrites (partial-stripe RMW through each OSD's
+ECBatcher, K1 and K2) and a truncate, then small files in directories are
+created, listed and read; ``rbd`` on the replicated pool: an image written
+and read at queue depth 16, 4 KiB random writes through the write-back
+cache and a flush, a snapshot, an overwrite, a read at the snapshot, a
+clone and copy-up in it; ``rbd_crypto``: an encrypted image written and
+read (or a line that says the machine lacks ``cryptography``);
+``mirror``: a journaled image replayed by a MirrorDaemon onto a second
+TestCluster of 4 OSDs on the card; ``rgw``: sigv4-signed S3 PUTs, GETs and
+a listing over HTTP on 127.0.0.1 (the client in threads) and a multipart
+upload; ``sqlite``: a CephVFS database on the EC pool (its callbacks from
+a thread into the cluster's loop), rows inserted in one transaction, an
+aggregate, a reopen (or a line that says why this Python's ``sqlite3``
+cannot see the VFS); ``degraded``: an OSD holding EC shards killed, the
+FS file read back (K1 rebuilds), a file written and the database queried
+and written, then every EC shard's hash_info CRCs held against the C++
+core. Every read must equal the host's copy; K1 and K2 must launch in
+``fs``, ``sqlite`` and ``degraded``; no step may call the rs byte API,
+decode on the host engine or fail a placement lookup. A line per step;
+the counts cut to keep the phase inside 90 s print in a line of their own.
+
 Phase ``proc`` drives the cluster tier across processes as the same RBD
 deployment: a ProcCluster of 3 Paxos mon processes and 12 OSD daemon
 processes, each OSD with its own WalStore and its own CUDA context on the
@@ -240,6 +266,11 @@ PL_EDGE_SIZES = (1, 2, 31, 32, 33, 64, 65)
 PL_EDGE_X, PL_EDGE_X_WIDE = 1027, 259
 PL_EDGE_PLAIN = ("flat33_firstn", "tree33_indep", "tree65_firstn",
                  "flat65_indep")
+#: The host rule engine's rows for the edge maps (pure Python: 53.5-58.4 s
+#: in one process on the H100's host, the maps of 1 or 2 items and
+#: indep rules most of it) come from this many forked worker processes,
+#: each taking PL_ORACLE_CHUNK inputs of a map at a time.
+PL_ORACLE_WORKERS, PL_ORACLE_CHUNK = 8, 64
 PL_RULES = {"replicated": (0, 3), "ec_8_3": (1, 11)}  # rule, numrep
 PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 
@@ -347,6 +378,58 @@ CL_TIMED = ("cluster_wb", "cluster_rb", "msg_b2048")
 #: The seeded thrash verdict (tools/thrash.py --seed 20260803: rs k=3,
 #: m=2 on 5 OSDs), cut to the 4 s of tests/test_fabric.py's proc thrash.
 CL_THRASH = ["--seed", "20260803", "--duration", "4"]
+
+#: Phase services: the client services (osdc/, services/) on phase
+#: cluster's deployment (CL_OSDS OSDs, the CL_EC_PROFILE pool with its
+#: 4 KiB stripe unit and a replicated size-3 pool, CL_PG_NUM PGs each, the
+#: cold-shape shield off), each at the services' own defaults: FSLite with
+#: its metadata on the replicated pool and its data on the EC pool (its
+#: layout's 4 MiB objects); RBD, which needs omap, on the replicated pool
+#: (rbd_default_order 22: 4 MiB objects); RGW, whose bucket index is omap,
+#: there too; CephVFS (SQLite) on the EC pool. I/O in 4 MiB requests (dd
+#: bs=4M), 4 KiB random writes fio-style (aligned, each block once) at
+#: queue depth SV_QD; the RBD handle for them is opened with the cache on
+#: (librbd's rbd_cache = true). The mirror's secondary is the layout of
+#: tests/test_mirror.py (SV_MIRROR_OSDS OSDs, one replicated pool of 8
+#: PGs). The degraded step kills OSD SV_KILLED, which holds EC shards.
+SV_FULL = {
+    "io_bytes": 4 << 20,
+    "fs_file_bytes": 1 << 30, "fs_overwrites": 1024,
+    "fs_files": 256, "fs_small_bytes": 64 << 10, "fs_dirs": 8,
+    "rbd_image_bytes": 1 << 30, "rbd_randwrites": 1024, "rbd_copyups": 16,
+    "crypt_image_bytes": 256 << 20,
+    "mirror_image_bytes": 256 << 20, "mirror_rounds": 4,
+    "rgw_puts": 64, "rgw_object_bytes": 4 << 20,
+    "rgw_multipart_bytes": 64 << 20, "rgw_parts": 8,
+    "sql_rows": 20_000, "sql_degraded_rows": 1_000,
+}
+#: Counts cut so that the phase keeps to its 90 s: at SV_FULL it took
+#: 111.1 s on the H100's host (fs 44.8: 16.6 of it the overwrites, rbd
+#: 19.4, degraded 12.7, mirror 11.2, sqlite 8.7, crypto 6.1, rgw 6.0);
+#: with the replicated-pool counts at half, 85.1 and 95.4 s (rbd
+#: 11.8-12.7, mirror 4.7-5.5, rgw 3.2-3.4, crypto 2.1). Only the services
+#: on the replicated pool, which launch no EC kernel, are cut, to a
+#: quarter, and the FS's small files (created one at a time) to half; the
+#: EC counts (the 1 GiB FS file, its 1,024 overwrites, the 20,000 SQLite
+#: rows) stay at SV_FULL. Each cut prints in a line of its own.
+SV_CUTS = {"fs_files": 128,
+           "rbd_image_bytes": 256 << 20, "rbd_randwrites": 256,
+           "crypt_image_bytes": 64 << 20, "mirror_image_bytes": 64 << 20,
+           "rgw_puts": 16}
+SV_SIZES = {**SV_FULL, **SV_CUTS}
+SV_QD, SV_OVERWRITE_BYTES = 16, 4096
+SV_MIRROR_OSDS, SV_MIRROR_PGS = 4, 8
+SV_KILLED = 1
+SV_RGW_USER = ("AKIDSERVICESPHASE", "services-phase-secret")
+#: The batches K1 and K2 are timed at alone after the phase (tag: step,
+#: its batches, the ``batch_times`` cases that step runs): the fs step's
+#: and the sqlite step's (its page writes) mean encode batch, the
+#: degraded step's mean decode batch.
+SV_TIMED = {"services_fs_wb": ("fs", "encode", ("write", "crc")),
+            "services_sql_wb": ("sqlite", "encode", ("write", "crc")),
+            "services_rb": ("degraded", "decode", ("decode",))}
+#: Seconds the whole drive may take before the phase fails.
+SV_TIMEOUT_S = 900.0
 
 #: Phase proc: phase cluster's RBD deployment as real daemons, the layout
 #: of Ceph's vstart.sh / qa/standalone (3 mons, OSDs on one host): 3 mon
@@ -855,12 +938,14 @@ def ecbatch_phase(dev, rng, rates: dict) -> dict:
     return {"launches": launches, "timed": timed}
 
 
-def batch_times(dev, rng, codec, b: int, su: int, tag: str) -> dict:
-    """K1 (encode to the m parities, decode of ECB_WANT from PRESENT) and
-    K2 (the CRCs of data and parity where they lie) on one batch of ``b``
-    stripes of ``su``-byte cells, each against its plain version: CUDA
-    event ms, plain ms, bound, profiler device ms. Prints a ``time`` line
-    each -> {"gf_<tag>_write", "gf_<tag>_decode", "crc_<tag>_write": ...}."""
+def batch_times(dev, rng, codec, b: int, su: int, tag: str,
+                cases=("write", "decode", "crc")) -> dict:
+    """K1 (``write``: encode to the m parities, ``decode``: ECB_WANT from
+    PRESENT) and K2 (``crc``: the CRCs of data and parity where they lie)
+    on one batch of ``b`` stripes of ``su``-byte cells, each of ``cases``
+    against its plain version: CUDA event ms, plain ms, bound, profiler
+    device ms. Prints a ``time`` line each -> {"gf_<tag>_write",
+    "gf_<tag>_decode", "crc_<tag>_write": ...} for those cases."""
     from ceph_tpu_torch.device import words_to_tensor
     from ceph_tpu_torch.ops import crc32c as crc_ops
     from ceph_tpu_torch.ops import rs
@@ -870,20 +955,20 @@ def batch_times(dev, rng, codec, b: int, su: int, tag: str) -> dict:
                         dev)
     par = rs.gf_matmul(codec.matrix, x)
     rm = codec.decode_matrix_for(PRESENT, ECB_WANT)
-    cases = {
-        f"gf_{tag}_write": (lambda: rs.gf_matmul(codec.matrix, x),
-                            lambda: rs.gf_matmul_plain(codec.matrix, x),
-                            gf_work(b, m, k, w)),
-        f"gf_{tag}_decode": (lambda: rs.gf_matmul(rm, x),
-                             lambda: rs.gf_matmul_plain(rm, x),
-                             gf_work(b, len(ECB_WANT), k, w)),
-        f"crc_{tag}_write": (lambda: crc_ops.crc0_cells(x, par),
-                             lambda: crc_ops.crc0_words_plain(
-                                 torch.cat([x, par], dim=1)),
-                             crc_work(b * (k + m), w)),
+    runs = {
+        "write": (f"gf_{tag}_write",
+                  lambda: rs.gf_matmul(codec.matrix, x),
+                  lambda: rs.gf_matmul_plain(codec.matrix, x),
+                  gf_work(b, m, k, w)),
+        "decode": (f"gf_{tag}_decode", lambda: rs.gf_matmul(rm, x),
+                   lambda: rs.gf_matmul_plain(rm, x),
+                   gf_work(b, len(ECB_WANT), k, w)),
+        "crc": (f"crc_{tag}_write", lambda: crc_ops.crc0_cells(x, par),
+                lambda: crc_ops.crc0_words_plain(torch.cat([x, par], dim=1)),
+                crc_work(b * (k + m), w)),
     }
     timed = {}
-    for key, (kernel, plain, (nbytes, ops)) in cases.items():
+    for key, kernel, plain, (nbytes, ops) in (runs[c] for c in cases):
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{key}: kernel and plain differ by {err}")
         ms, plain_ms = time_ms(kernel, reps=50), time_ms(plain)
@@ -904,6 +989,54 @@ def rule_bound(draws: int, nbytes: float) -> tuple[float, str]:
     t_ops = draws * STRAW2_OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+#: name -> (CrushMap, rule, numrep, weights, inputs) of the maps whose
+#: rows ``pl_oracle`` asks its workers for; set before they fork.
+_ORACLE_MAPS: dict = {}
+
+
+def pl_oracle_rows(task: tuple) -> tuple:
+    """A worker's share of ``pl_oracle``: ``CrushMap.do_rule`` on inputs
+    [lo, hi) of map ``name`` -> (name, lo, rows, seconds)."""
+    name, lo, hi = task
+    cmap, ruleno, numrep, weights, xs = _ORACLE_MAPS[name]
+    t0 = time.perf_counter()
+    rows = [cmap.do_rule(ruleno, int(x), numrep, weights) for x in xs[lo:hi]]
+    return name, lo, rows, time.perf_counter() - t0
+
+
+def pl_oracle(maps: dict, workers: int = PL_ORACLE_WORKERS,
+              chunk: int = PL_ORACLE_CHUNK) -> tuple[dict, dict]:
+    """Rows of the host rule engine for every map of ``maps`` (name ->
+    (CrushMap, rule, numrep, weights, inputs)), computed by ``workers``
+    forked processes, ``chunk`` inputs a task; the pool is closed before
+    it returns. The workers run pure Python and touch no device ->
+    (name -> (inputs, numrep) int32 array, rows padded with ITEM_NONE,
+    name -> seconds the workers spent on it)."""
+    import multiprocessing as mp
+
+    from ceph_tpu_torch.placement.crushmap import ITEM_NONE
+
+    _ORACLE_MAPS.clear()
+    _ORACLE_MAPS.update(maps)
+    tasks = [(name, lo, min(lo + chunk, len(m[4])))
+             for name, m in maps.items() for lo in range(0, len(m[4]), chunk)]
+    try:
+        with mp.get_context("fork").Pool(workers) as pool:
+            parts = pool.map(pl_oracle_rows, tasks, chunksize=1)
+    finally:
+        _ORACLE_MAPS.clear()
+    rows = {name: [None] * len(m[4]) for name, m in maps.items()}
+    seconds = dict.fromkeys(maps, 0.0)
+    for name, lo, part, sec in parts:
+        numrep = maps[name][2]
+        rows[name][lo:lo + len(part)] = [
+            row + [ITEM_NONE] * (numrep - len(row)) for row in part]
+        seconds[name] += sec
+    return ({name: np.asarray(r, dtype=np.int32).reshape(
+                len(r), maps[name][2]) for name, r in rows.items()},
+            seconds)
 
 
 def rule_edge_maps() -> dict:
@@ -1127,23 +1260,24 @@ def placement_phase(dev) -> dict:
     # engine, draws equal across the widths, and on the PL_EDGE_PLAIN maps
     # rows and draws against the plain version on the same inputs
     xrng = np.random.default_rng(20261019)
-    edge_groups, edge_oracle_s, edge_plain_draws = {}, {}, {}
+    edge_groups, edge_plain_draws = {}, {}
     t_edges = time.perf_counter()
+    edges = {}
     for ename, (emap, ruleno, numrep, ew) in rule_edge_maps().items():
         ecomp = bulk.CompiledMap(emap)
-        erule = ecomp.compile_rule(ruleno, numrep)
         ew = (np.full(ecomp.max_devices, 0x10000, dtype=np.uint32)
               if ew is None else ew)
-        ew_t = t32(ew)
         ex = xrng.integers(0, 2**32, PL_EDGE_X if numrep < 256
                            else PL_EDGE_X_WIDE, dtype=np.uint32)
-        ex_t = t32(ex)
-        t_oracle = time.perf_counter()
-        want = torch.tensor([row + [cm.ITEM_NONE] * (numrep - len(row))
-                             for row in (emap.do_rule(ruleno, int(x), numrep,
-                                                      ew) for x in ex)],
-                            dtype=torch.int32, device=dev)
-        edge_oracle_s[ename] = time.perf_counter() - t_oracle
+        edges[ename] = (emap, ruleno, numrep, ew, ex, ecomp)
+    t_oracle = time.perf_counter()
+    oracle_rows, edge_oracle_s = pl_oracle(
+        {n: e[:5] for n, e in edges.items()})
+    oracle_wall_s = time.perf_counter() - t_oracle
+    for ename, (_, ruleno, numrep, ew, ex, ecomp) in edges.items():
+        erule = ecomp.compile_rule(ruleno, numrep)
+        ew_t, ex_t = t32(ew), t32(ex)
+        want = torch.from_numpy(oracle_rows[ename]).to(dev)
         widths = sorted({bulk.group_width(ecomp.widest(erule.take), n, lanes)
                          for n in (1, PL_X)})
         err, draws = 0, set()
@@ -1170,6 +1304,7 @@ def placement_phase(dev) -> dict:
     emit({"phase": "placement_rule_edges", "inputs": PL_EDGE_X,
           "inputs_numrep_256": PL_EDGE_X_WIDE, "against": "CrushMap.do_rule",
           "seconds": time.perf_counter() - t_edges,
+          "oracle_wall_s": oracle_wall_s, "oracle_workers": PL_ORACLE_WORKERS,
           "oracle_seconds": edge_oracle_s,
           "groups": edge_groups, "draws_equal_across_widths": True,
           "plain_draws": edge_plain_draws,
@@ -2597,27 +2732,12 @@ def msg_phase(dev, rng, card: str, transports=None,
     return {"launches": launches, "lines": lines}
 
 
-def cl_placement_failure(e: BaseException) -> bool:
-    """Whether ``e`` came out of the placement layer: a frame of
-    ``ceph_tpu_torch/placement`` in its traceback or in its cause's."""
-    seen = set()
-    while e is not None and id(e) not in seen:
-        seen.add(id(e))
-        tb = e.__traceback__
-        while tb is not None:
-            if "/placement/" in tb.tb_frame.f_code.co_filename:
-                return True
-            tb = tb.tb_next
-        e = e.__cause__ or e.__context__
-    return False
-
-
 async def cl_ops(client, ops: list) -> dict:
     """Submit ``ops`` [(pool, name, op vector, bytes a read must return
     or None)] through the client's aio window and wait for all of them ->
     {"lat_s": each op's seconds from entering the window to its reply,
-    "wall_s", "failed": failures, "placement_failed": those that came out
-    of the placement layer, "mismatched": reads unequal to their bytes}."""
+    "wall_s", "failed": failures, "mismatched": reads unequal to their
+    bytes}."""
     lat = [0.0] * len(ops)
     comps = []
     t0 = time.perf_counter()
@@ -2630,38 +2750,42 @@ async def cl_ops(client, ops: list) -> dict:
         comps.append(comp)
     await client.writes_wait()
     wall = time.perf_counter() - t0
-    failed, placement, mismatched = [], 0, 0
+    failed, mismatched = [], 0
     for (pool, name, _, want), comp in zip(ops, comps):
         try:
             reply = comp.result()
         except Exception as e:  # every failure is counted, then fails
             failed.append(f"{pool}/{name}: {e!r}")
-            placement += cl_placement_failure(e)
             continue
         if want is not None and bytes(reply.outs[0][1]) != want:
             mismatched += 1
     return {"lat_s": lat, "wall_s": wall, "failed": failed,
-            "placement_failed": placement, "mismatched": mismatched}
+            "mismatched": mismatched}
 
 
 class ClSteps:
-    """The cluster phase's ledger, read at each step's end: kernel
-    launches, calls of the rs byte API (``RSCodec.encode_chunks`` /
-    ``decode_chunks``), the recovery reservations a PG asked of its
-    targets (``PG._reserve_remote``: granted, or timed out after 4 x
-    ``osd_subop_timeout``), the OSDs' decode rounds on the device and on
-    the host engine, and the client's placement counters, each as the
-    step's delta."""
+    """The ledger of phases ``cluster`` and ``services``, read at each
+    step's end: kernel launches, calls of the rs byte API
+    (``RSCodec.encode_chunks`` / ``decode_chunks``), the recovery
+    reservations a PG asked of its targets (``PG._reserve_remote``:
+    granted, or timed out after 4 x ``osd_subop_timeout``), the OSDs'
+    decode rounds on the device and on the host engine, the client's
+    placement counters and the lookups its resolver failed (raised out of
+    ``PlacementResolver.afull`` or ``full``, also where a caller swallows
+    them, as the striper's prefetch does), each as the step's delta."""
 
-    def __init__(self, card: str):
+    def __init__(self, card: str, phase: str = "cluster"):
         from ceph_tpu_torch import kernels
         from ceph_tpu_torch.cluster.pg import PG
         from ceph_tpu_torch.ec import rs_plugin
+        from ceph_tpu_torch.placement.resolver import PlacementResolver
 
         self.card = card
+        self.phase = phase
         self.kernels = kernels
         self.rs_calls = {"encode_chunks": 0, "decode_chunks": 0}
         self.reserve = {"granted": 0, "timed_out": 0}
+        self.placement_failures = 0
         self._real = [(rs_plugin.RSCodec, n, getattr(rs_plugin.RSCodec, n))
                       for n in self.rs_calls]
         for cls, n, fn in self._real:
@@ -2677,6 +2801,25 @@ class ClSteps:
             return ok
         self._real.append((PG, "_reserve_remote", reserve))
         PG._reserve_remote = reserve_counted
+        afull, full = PlacementResolver.afull, PlacementResolver.full
+
+        async def afull_counted(*a, **kw):
+            try:
+                return await afull(*a, **kw)
+            except Exception:
+                self.placement_failures += 1
+                raise
+
+        def full_counted(*a, **kw):
+            try:
+                return full(*a, **kw)
+            except Exception:
+                self.placement_failures += 1
+                raise
+        self._real += [(PlacementResolver, "afull", afull),
+                       (PlacementResolver, "full", full)]
+        PlacementResolver.afull = afull_counted
+        PlacementResolver.full = full_counted
         self.lines: dict[str, dict] = {}
         self.cluster = None
         self._last = None
@@ -2704,6 +2847,7 @@ class ClSteps:
                 "launches": {k.name: k.launches
                              for k in self.kernels.KERNELS},
                 "rs": dict(self.rs_calls), "reserve": dict(self.reserve),
+                "placement_failures": self.placement_failures,
                 "osds": self._osd_counters(),
                 "placement": dict(client.placement_stats())
                 if client is not None else {}}
@@ -2723,7 +2867,7 @@ class ClSteps:
                     now_c, last["osds"].get(key, (0,) * 5))):
                 moved[i] += v - v0
         host, decode, encode, decode_stripes, encode_stripes = moved
-        line = {"phase": "cluster", "step": step,
+        line = {"phase": self.phase, "step": step,
                 "seconds": now["t"] - last["t"],
                 "launches": {n: v - last["launches"][n]
                              for n, v in now["launches"].items()},
@@ -2737,6 +2881,8 @@ class ClSteps:
                 "decode_host_rounds": host,
                 "placement": {n: v - last["placement"].get(n, 0)
                               for n, v in now["placement"].items()},
+                "placement_failures": now["placement_failures"]
+                - last["placement_failures"],
                 **extra, "card": self.card}
         self.lines[step] = line
         self._last = self._snapshot()
@@ -2760,19 +2906,50 @@ def cl_traffic(res: dict, nbytes: int) -> dict:
             "wall_s": res["wall_s"],
             "lat_p50_ms": float(np.percentile(lat, 50)),
             "lat_p99_ms": float(np.percentile(lat, 99)),
-            "failed_ops": len(res["failed"]),
-            "placement_failed_ops": res["placement_failed"]}
+            "failed_ops": len(res["failed"])}
 
 
 def cl_check(res: dict, what: str) -> None:
     check(not res["failed"], f"cluster {what}: {len(res['failed'])} ops "
                              f"failed, first {res['failed'][:3]}")
-    check(res["placement_failed"] == 0,
-          f"cluster {what}: {res['placement_failed']} ops failed on "
-          "placement")
     check(res["mismatched"] == 0,
           f"cluster {what}: {res['mismatched']} reads differ from what "
           "was written")
+
+
+def cl_lookups_check(steps: ClSteps, phase: str) -> None:
+    """No step of ``steps`` failed a placement lookup."""
+    failed = {s: line["placement_failures"]
+              for s, line in steps.lines.items()
+              if line["placement_failures"]}
+    check(not failed, f"{phase}: placement lookups failed {failed}")
+
+
+def cl_hinfo_check(stores, su: int, phase: str) -> tuple[int, int]:
+    """Every EC shard's hash_info CRCs (the CL_EC_POOL collections of
+    ``stores``, PG meta objects left out) against the C++ core's CRC32C
+    of its ``su``-byte cells -> (shards, cells) checked."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.cluster.pg import ATTR_HINFO, META_OID
+    from ceph_tpu_torch.cluster.stripe import dec_hinfo
+
+    shards = cells = 0
+    for store in stores:
+        for cid in store.list_collections():
+            if not cid.startswith(f"{CL_EC_POOL}."):
+                continue
+            for oid in store.list_objects(cid):
+                if oid == META_OID:
+                    continue
+                data = np.frombuffer(store.read(cid, oid), np.uint8)
+                want = dec_hinfo(store.getattr(cid, oid, ATTR_HINFO))
+                got = native.crc32c_batch(data.reshape(-1, su))
+                check(np.array_equal(got, want),
+                      f"{phase}: {cid}/{oid!r} hash_info differs from "
+                      "the C++ core's CRC of its bytes")
+                shards += 1
+                cells += len(got)
+    return shards, cells
 
 
 async def cl_profiled(coro_fn, pad: float = PROFILE_PADS_S[0]):
@@ -2795,11 +2972,8 @@ async def cl_drive(steps: ClSteps, device, rng, objects: int,
                    degraded_writes: int, profile: bool) -> dict:
     """The cluster phase's traffic on one event loop (see
     ``cluster_phase``)."""
-    from ceph_tpu_torch import native
     from ceph_tpu_torch.cluster import TestCluster
     from ceph_tpu_torch.cluster import messages as M
-    from ceph_tpu_torch.cluster.pg import ATTR_HINFO, META_OID
-    from ceph_tpu_torch.cluster.stripe import dec_hinfo
     from ceph_tpu_torch.placement.osdmap import Pool
 
     c = TestCluster(n_osds=CL_OSDS, out_interval=CL_OUT_INTERVAL,
@@ -2919,22 +3093,7 @@ async def cl_drive(steps: ClSteps, device, rng, objects: int,
                 inconsistent += len(rep["inconsistent"])
         check(inconsistent == 0,
               f"cluster scrub: {inconsistent} inconsistent objects")
-        shards = cells = 0
-        for store in c.stores:
-            for cid in store.list_collections():
-                if not cid.startswith(f"{CL_EC_POOL}."):
-                    continue
-                for oid in store.list_objects(cid):
-                    if oid == META_OID:
-                        continue
-                    data = np.frombuffer(store.read(cid, oid), np.uint8)
-                    want = dec_hinfo(store.getattr(cid, oid, ATTR_HINFO))
-                    got = native.crc32c_batch(data.reshape(-1, su))
-                    check(np.array_equal(got, want),
-                          f"cluster: {cid}/{oid!r} hash_info differs from "
-                          "the C++ core's CRC of its bytes")
-                    shards += 1
-                    cells += len(got)
+        shards, cells = cl_hinfo_check(c.stores, su, "cluster")
         check(shards == 11 * (objects + degraded_writes),
               f"cluster: {shards} EC shards stored")
         out["scrub"] = steps.mark("scrub", pgs=2 * CL_PG_NUM,
@@ -2999,6 +3158,7 @@ def cluster_phase(card: str, rng, device=None, objects: int = CL_OBJECTS,
                    events=len(verdict["events"]),
                    hedge_counters=verdict.get("hedge_counters"),
                    ec_counters=verdict["ec_counters"])
+        cl_lookups_check(steps, "cluster")
     finally:
         steps.close()
     launches = steps.totals()
@@ -3023,6 +3183,678 @@ def cluster_phase(card: str, rng, device=None, objects: int = CL_OBJECTS,
           "drive_s": drive_s})
     return {"lines": steps.lines, "launches": launches, "thrash": verdict,
             "timed": timed}
+
+
+async def sv_run(calls, qd: int) -> dict:
+    """Await every zero-argument coroutine function of ``calls``, at most
+    ``qd`` in flight, in order of submission -> {"lat_s": each call's
+    seconds, "wall_s", "results": what each returned}. A failure raises
+    out of the step."""
+    sem = asyncio.Semaphore(qd)
+    lat = [0.0] * len(calls)
+    results = [None] * len(calls)
+
+    async def one(i, call):
+        async with sem:
+            t = time.perf_counter()
+            results[i] = await call()
+            lat[i] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one(i, c) for i, c in enumerate(calls)))
+    return {"lat_s": lat, "wall_s": time.perf_counter() - t0,
+            "results": results}
+
+
+def sv_traffic(res: dict, nbytes: int) -> dict:
+    """A step's traffic numbers from ``sv_run``'s result."""
+    lat = np.asarray(res["lat_s"]) * 1e3
+    return {"ops": len(lat), "bytes": nbytes, "wall_s": res["wall_s"],
+            "GiB_per_s": nbytes / 2**30 / res["wall_s"],
+            "ops_per_s": len(lat) / res["wall_s"],
+            "lat_p50_ms": float(np.percentile(lat, 50)),
+            "lat_p99_ms": float(np.percentile(lat, 99))}
+
+
+def sv_blocks(rng, nbytes: int, count: int) -> list[int]:
+    """fio randwrite offsets: ``count`` distinct SV_OVERWRITE_BYTES-aligned
+    blocks of an ``nbytes`` file, so writes in flight together never
+    overlap and the host's copy is the same in any order."""
+    n = nbytes // SV_OVERWRITE_BYTES
+    return [int(b) * SV_OVERWRITE_BYTES
+            for b in rng.choice(n, min(count, n), replace=False)]
+
+
+async def sv_read_back(read, model, io: int) -> dict:
+    """Read ``model``'s bytes back from offset 0 through ``read(offset,
+    length)`` in ``io``-byte requests, SV_QD at a time -> ``sv_run``'s
+    result, each result whether the read equals the model."""
+    async def one(off):
+        want = model[off:off + io]
+        return await read(off, len(want)) == want
+    return await sv_run([lambda o=o: one(o)
+                         for o in range(0, len(model), io)], SV_QD)
+
+
+def sv_reads_equal(res: dict, what: str) -> None:
+    bad = sum(1 for ok in res["results"] if not ok)
+    check(bad == 0, f"services {what}: {bad} of {len(res['results'])} "
+                    "reads differ from the host's copy")
+
+
+def sv_sqlite_shared() -> str | None:
+    """None when this Python's ``sqlite3`` module loads the
+    ``libsqlite3.so.0`` that ctypes opens, so a VFS registered through
+    ctypes (``CephVFS.register``) serves its ``connect``; else why not (a
+    module with SQLite linked in statically never sees the VFS)."""
+    import ctypes
+    import sqlite3
+
+    def mapped() -> set[str]:
+        with open("/proc/self/maps") as f:
+            return {os.path.realpath(ln.split()[-1]) for ln in f
+                    if "libsqlite3" in ln and "/" in ln}
+
+    module = mapped()
+    if not module:
+        return (f"the sqlite3 module ({sqlite3.sqlite_version}) maps no "
+                "libsqlite3 shared library: SQLite is linked in statically")
+    try:
+        ctypes.CDLL("libsqlite3.so.0")
+    except OSError as e:
+        return f"ctypes cannot open libsqlite3.so.0: {e}"
+    both = mapped()
+    if both != module:
+        return (f"the sqlite3 module maps {sorted(module)}, ctypes "
+                f"{sorted(both - module)}")
+    return None
+
+
+async def sv_fs(steps: ClSteps, c, rng, sz: dict) -> dict:
+    """Step ``fs``: FSLite with its data on the EC pool."""
+    from ceph_tpu_torch.services.fs import FSLite
+
+    io, size = sz["io_bytes"], sz["fs_file_bytes"]
+    fs = FSLite(c.client, CL_REP_POOL, data_pool=CL_EC_POOL)
+    await fs.mkfs()
+    model = bytearray(rng.bytes(size))
+    n = size // io
+    # one write at a time, in order (dd bs=4M): FSLite.write reads the
+    # inode's size and writes it back, so two extending writes in flight
+    # could leave the smaller one
+    res = await sv_run([lambda i=i: fs.write(
+        "/big", bytes(model[i * io:(i + 1) * io]), i * io)
+        for i in range(n)], 1)
+    write = sv_traffic(res, size)
+    res = await sv_read_back(lambda o, n: fs.read("/big", o, n), model, io)
+    sv_reads_equal(res, "fs read")
+    read = sv_traffic(res, size)
+    # 4 KiB random overwrites inside the file: the inode's size does not
+    # move, so they run SV_QD at a time (partial-stripe RMW on the PG)
+    offs = sv_blocks(rng, size, sz["fs_overwrites"])
+    patches = [rng.bytes(SV_OVERWRITE_BYTES) for _ in offs]
+    for off, p in zip(offs, patches):
+        model[off:off + SV_OVERWRITE_BYTES] = p
+    res = await sv_run([lambda o=o, p=p: fs.write("/big", p, o)
+                        for o, p in zip(offs, patches)], SV_QD)
+    overwrite = sv_traffic(res, len(offs) * SV_OVERWRITE_BYTES)
+    # (step degraded reads the whole file back after them)
+    # truncate at an unaligned length: the tail is cut on the OSDs
+    cut = size - io - io // 2 - 12_345
+    t0 = time.perf_counter()
+    await fs.truncate("/big", cut)
+    truncate_s = time.perf_counter() - t0
+    del model[cut:]
+    check((await fs.stat("/big"))["size"] == cut, "fs truncate size")
+    tail = max(0, cut - 2 * io)
+    check(await fs.read("/big", tail) == model[tail:],
+          "fs read across the truncation")
+    # small files in directories, one create at a time (the inode
+    # allocator reads and writes back fsmeta.nextino); read SV_QD at a time
+    dirs = [f"/d{j}" for j in range(sz["fs_dirs"])]
+    for d in dirs:
+        await fs.mkdir(d)
+    small = {f"{dirs[i % len(dirs)]}/f{i:04d}": rng.bytes(
+        sz["fs_small_bytes"]) for i in range(sz["fs_files"])}
+    res = await sv_run([lambda p=p, d=d: fs.write(p, d)
+                        for p, d in small.items()], 1)
+    create = sv_traffic(res, sum(map(len, small.values())))
+    t0 = time.perf_counter()
+    listed = {d: await fs.listdir(d) for d in dirs}
+    list_s = time.perf_counter() - t0
+    for d in dirs:
+        check(sorted(listed[d]) == sorted(
+            p.rsplit("/", 1)[1] for p in small if p.startswith(d + "/")),
+            f"fs listdir {d}")
+
+    async def read_small(p):
+        return await fs.read(p) == small[p]
+    res = await sv_run([lambda p=p: read_small(p) for p in small], SV_QD)
+    sv_reads_equal(res, "fs small-file read")
+    steps.mark("fs", write=write, read=read, overwrite=overwrite,
+               truncate_s=truncate_s, truncated_to=cut,
+               small_create=create, small_read=sv_traffic(
+                   res, sum(map(len, small.values()))),
+               dirs=len(dirs), list_s=list_s)
+    return {"fs": fs, "model": model}
+
+
+async def sv_rbd(steps: ClSteps, c, rng, sz: dict) -> None:
+    """Step ``rbd``: one image on the replicated pool, then a snapshot, a
+    clone and copy-up."""
+    from ceph_tpu_torch.services.rbd import RBD
+
+    io, size = sz["io_bytes"], sz["rbd_image_bytes"]
+    rbd = RBD(c.client, CL_REP_POOL)
+    await rbd.create("vol", size)
+    img = await rbd.open("vol")
+    model = bytearray(rng.bytes(size))
+    res = await sv_run([lambda o=o: img.write(o, bytes(model[o:o + io]))
+                        for o in range(0, size, io)], SV_QD)
+    write = sv_traffic(res, size)
+    res = await sv_read_back(img.read, model, io)
+    sv_reads_equal(res, "rbd read")
+    read = sv_traffic(res, size)
+    await img.release_lock()
+    # 4 KiB random writes through the write-back cache, then a flush
+    cimg = await rbd.open("vol", cache=True)
+    offs = sv_blocks(rng, size, sz["rbd_randwrites"])
+    patches = [rng.bytes(SV_OVERWRITE_BYTES) for _ in offs]
+    for off, p in zip(offs, patches):
+        model[off:off + SV_OVERWRITE_BYTES] = p
+    res = await sv_run([lambda o=o, p=p: cimg.write(o, p)
+                        for o, p in zip(offs, patches)], SV_QD)
+    t0 = time.perf_counter()
+    await cimg.flush()
+    flush_s = time.perf_counter() - t0
+    randwrite = sv_traffic(res, len(offs) * SV_OVERWRITE_BYTES)
+    randwrite["wall_s_with_flush"] = randwrite["wall_s"] + flush_s
+    # a snapshot, then the head's first objects overwritten
+    t0 = time.perf_counter()
+    await cimg.snap_create("s1")
+    snap_s = time.perf_counter() - t0
+    at_snap = bytes(model)
+    span = sz["rbd_copyups"] * io
+    fresh = rng.bytes(span)
+    model[:span] = fresh
+    res = await sv_run([lambda o=o: cimg.write(o, fresh[o:o + io])
+                        for o in range(0, span, io)], SV_QD)
+    await cimg.flush()
+    overwrite = sv_traffic(res, span)
+    snap = await rbd.open("vol", snap="s1")
+    res = await sv_read_back(snap.read, at_snap, io)
+    sv_reads_equal(res, "rbd read at the snapshot")
+    snap_read = sv_traffic(res, size)
+    res = await sv_read_back(cimg.read, model[:span], io)
+    sv_reads_equal(res, "rbd head read after the overwrite")
+    # a clone of the snapshot; a 4 KiB write into each of the objects
+    # after the overwritten ones copies that object up from the parent
+    t0 = time.perf_counter()
+    await rbd.clone("vol", "s1", "child")
+    child = await rbd.open("child")
+    clone_s = time.perf_counter() - t0
+    child_model = bytearray(at_snap[:3 * span])
+    ups = list(range(span, 2 * span, io))
+    for o in ups:
+        child_model[o + 8192:o + 12288] = rng.bytes(4096)
+    res = await sv_run([lambda o=o: child.write(
+        o + 8192, bytes(child_model[o + 8192:o + 12288])) for o in ups],
+        SV_QD)
+    copyup = sv_traffic(res, len(ups) * io)
+    res = await sv_read_back(child.read, child_model, io)
+    sv_reads_equal(res, "rbd child read")
+    child_read = sv_traffic(res, 3 * span)
+    objects = {bytes(n) for n in await c.client.list_objects(CL_REP_POOL)}
+    copied = sum(f"rbd_data.child.{o // io:016x}".encode() in objects
+                 for o in range(0, 3 * span, io))
+    check(copied == len(ups), f"rbd child holds {copied} objects, "
+                              f"{len(ups)} copied up")
+    await child.release_lock()
+    await cimg.release_lock()
+    steps.mark("rbd", write=write, read=read, randwrite=randwrite,
+               flush_s=flush_s, snap_s=snap_s, overwrite=overwrite,
+               snap_read=snap_read, clone_s=clone_s, copyup=copyup,
+               child_read=child_read, copied_up=copied)
+
+
+async def sv_crypto(steps: ClSteps, c, rng, sz: dict) -> None:
+    """Step ``rbd_crypto``: an encrypted image written and read, when the
+    ``cryptography`` package imports; else a line that says it is
+    missing."""
+    import importlib.util
+
+    if importlib.util.find_spec("cryptography") is None:
+        emit({"phase": "services", "step": "rbd_crypto", "skipped":
+              "left out: rbd_crypto's AES-XTS and AES-GCM import the "
+              "cryptography package, which this machine does not have; "
+              "tests/test_torch_rbd_crypto.py runs it on the CPU",
+              "card": steps.card})
+        return
+    from ceph_tpu_torch.services.rbd import RBD
+    from ceph_tpu_torch.services.rbd_crypto import (encryption_format,
+                                                    open_encrypted)
+
+    io, size = sz["io_bytes"], sz["crypt_image_bytes"]
+    rbd = RBD(c.client, CL_REP_POOL)
+    await rbd.create("vault", size)
+    await encryption_format(rbd, "vault", "services-phase")
+    img = await open_encrypted(rbd, "vault", "services-phase")
+    model = rng.bytes(size)
+    res = await sv_run([lambda o=o: img.write(o, model[o:o + io])
+                        for o in range(0, size, io)], SV_QD)
+    write = sv_traffic(res, size)
+    res = await sv_read_back(img.read, model, io)
+    sv_reads_equal(res, "rbd_crypto read")
+    read = sv_traffic(res, size)
+    await img.close()
+    raw = await (await rbd.open("vault")).read(0, io)
+    check(raw != model[:io], "rbd_crypto: the image holds plaintext")
+    steps.mark("rbd_crypto", write=write, read=read)
+
+
+async def sv_mirror(steps: ClSteps, c, rng, sz: dict, device) -> None:
+    """Step ``mirror``: a journaled image on the main cluster replayed by
+    a MirrorDaemon onto a second TestCluster on the same device."""
+    from ceph_tpu_torch.cluster import TestCluster
+    from ceph_tpu_torch.placement.osdmap import Pool
+    from ceph_tpu_torch.services import mirror as mir
+    from ceph_tpu_torch.services.rbd import RBD
+
+    io, size = sz["io_bytes"], sz["mirror_image_bytes"]
+    t0 = time.perf_counter()
+    site = TestCluster(n_osds=SV_MIRROR_OSDS, device=device)
+    await site.start()
+    try:
+        site.client.op_timeout = CL_OP_TIMEOUT_S
+        await site.client.create_pool(Pool(
+            id=1, name="rbd", size=3, pg_num=SV_MIRROR_PGS, crush_rule=0))
+        await site.wait_active(60)
+        site_s = time.perf_counter() - t0
+        await RBD(c.client, CL_REP_POOL).create("mirrored", size)
+        img = await mir.journaled(c.client, CL_REP_POOL, "mirrored")
+        daemon = mir.MirrorDaemon(c.client, CL_REP_POOL, site.client, 1)
+        check(await daemon.sync_image("mirrored") == 0,
+              "mirror bootstrap replayed entries")
+        model = rng.bytes(size)
+        offs = list(range(0, size, io))
+        rounds = np.array_split(offs, sz["mirror_rounds"])
+        lat, wall, applied, replay_s = [], 0.0, 0, 0.0
+        for part in rounds:
+            res = await sv_run([lambda o=int(o): img.write(
+                o, model[o:o + io]) for o in part], SV_QD)
+            lat += res["lat_s"]
+            wall += res["wall_s"]
+            t1 = time.perf_counter()
+            n = await daemon.sync_image("mirrored")
+            replay_s += time.perf_counter() - t1
+            check(n == len(part), f"mirror replayed {n} of {len(part)}")
+            applied += n
+        write = sv_traffic({"lat_s": lat, "wall_s": wall}, size)
+        dst = await RBD(site.client, 1).open("mirrored")
+        check(dst.size == size, f"mirror secondary size {dst.size}")
+        res = await sv_read_back(dst.read, model, io)
+        sv_reads_equal(res, "mirror secondary read")
+        secondary = sv_traffic(res, size)
+        res = await sv_read_back(img.read, model, io)
+        sv_reads_equal(res, "mirror primary read")
+        await img.release_lock()
+        await dst.release_lock()
+        steps.mark("mirror", site_start_s=site_s, write=write,
+                   entries_replayed=applied, replay_s=replay_s,
+                   replay_GiB_per_s=size / 2**30 / replay_s,
+                   secondary_read=secondary,
+                   primary_read=sv_traffic(res, size))
+    finally:
+        await site.stop()
+
+
+def sv_http(port: int, method: str, path: str, body: bytes = b"",
+            query: str = "") -> tuple[int, dict, bytes]:
+    """One sigv4-signed S3 request to 127.0.0.1:``port`` (blocking: run it
+    in a thread, never on the cluster's loop) -> (status, headers, body)."""
+    import urllib.error
+    import urllib.request
+
+    from ceph_tpu_torch.services.rgw import _sha256, sigv4_sign
+
+    host = f"127.0.0.1:{port}"
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    headers = {"host": host, "x-amz-content-sha256": _sha256(body),
+               "x-amz-date": amz_date}
+    headers["authorization"] = sigv4_sign(
+        method, path, query, headers, body, *SV_RGW_USER, amz_date)
+    req = urllib.request.Request(
+        f"http://{host}{path}" + (f"?{query}" if query else ""),
+        data=body or None, method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=CL_OP_TIMEOUT_S) as r:
+            return r.status, {k.lower(): v for k, v in r.headers.items()}, \
+                r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, {k.lower(): v for k, v in e.headers.items()}, e.read()
+
+
+async def sv_rgw(steps: ClSteps, c, rng, sz: dict) -> None:
+    """Step ``rgw``: S3 over HTTP with sigv4 on the replicated pool."""
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    from ceph_tpu_torch.services.rgw import RGWLite, S3Frontend
+
+    rgw = RGWLite(c.client, CL_REP_POOL)
+    fe = S3Frontend(rgw, users={SV_RGW_USER[0]: SV_RGW_USER[1]})
+    _host, port = await fe.start("127.0.0.1", 0)
+    try:
+        def http(*a, **kw):
+            return asyncio.to_thread(sv_http, port, *a, **kw)
+
+        status, _, body = await http("PUT", "/services")
+        check(status == 200, f"rgw bucket create {status} {body[:200]}")
+        objs = {f"obj-{i:04d}": rng.bytes(sz["rgw_object_bytes"])
+                for i in range(sz["rgw_puts"])}
+
+        async def put(key):
+            status, hdr, _ = await http("PUT", f"/services/{key}",
+                                        objs[key])
+            return (status == 200 and hdr.get("etag", "").strip('"')
+                    == hashlib.md5(objs[key]).hexdigest())
+        res = await sv_run([lambda k=k: put(k) for k in objs], SV_QD)
+        bad = sum(not ok for ok in res["results"])
+        check(bad == 0, f"rgw: {bad} PUTs failed or returned a wrong ETag")
+        puts = sv_traffic(res, sum(map(len, objs.values())))
+        # multipart through the gateway's API (its S3 frontend has no
+        # multipart route, as in the reference), parts SV_QD at a time
+        mp = rng.bytes(sz["rgw_multipart_bytes"])
+        part = len(mp) // sz["rgw_parts"]
+        t0 = time.perf_counter()
+        upload = await rgw.initiate_multipart("services", "multipart")
+        res = await sv_run([lambda p=p: rgw.upload_part(
+            "services", "multipart", upload, p + 1,
+            mp[p * part:(p + 1) * part]) for p in range(sz["rgw_parts"])],
+            SV_QD)
+        etag = await rgw.complete_multipart(
+            "services", "multipart", upload, list(range(1, sz["rgw_parts"]
+                                                        + 1)))
+        multipart_s = time.perf_counter() - t0
+        want = hashlib.md5(b"".join(bytes.fromhex(e) for e in
+                                    res["results"])).hexdigest()
+        check(etag == f"{want}-{sz['rgw_parts']}", f"rgw multipart ETag "
+                                                   f"{etag}")
+        objs["multipart"] = mp
+
+        async def get(key):
+            status, _, body = await http("GET", f"/services/{key}")
+            return status == 200 and body == objs[key]
+        res = await sv_run([lambda k=k: get(k) for k in objs], SV_QD)
+        sv_reads_equal(res, "rgw GET")
+        gets = sv_traffic(res, sum(map(len, objs.values())))
+        t0 = time.perf_counter()
+        status, _, body = await http("GET", "/services")
+        list_s = time.perf_counter() - t0
+        check(status == 200, f"rgw listing {status}")
+        keys = [el.text for el in ET.fromstring(body).iter()
+                if el.tag.rsplit("}", 1)[-1] == "Key"]
+        check(keys == sorted(objs), f"rgw listing {keys[:4]}...")
+    finally:
+        await fe.stop()
+    steps.mark("rgw", puts=puts, multipart_bytes=len(mp),
+               multipart_parts=sz["rgw_parts"], multipart_s=multipart_s,
+               gets=gets, listed=len(keys), list_s=list_s)
+
+
+SV_SQL_SCHEMA = ("create table t (id integer primary key, k text, "
+                 "v integer, pad text)")
+SV_SQL_AGG = "select count(*), sum(v), min(k), max(k) from t"
+
+
+def sv_sql_rows(rng, lo: int, hi: int) -> list[tuple]:
+    vals = rng.integers(0, 1 << 40, hi - lo)
+    return [(i, f"key-{i:08d}", int(v), f"{int(v):x}" * 4)
+            for i, v in zip(range(lo, hi), vals)]
+
+
+def sv_sql_expect(rows: list[tuple]) -> tuple:
+    return (len(rows), sum(r[2] for r in rows), min(r[1] for r in rows),
+            max(r[1] for r in rows))
+
+
+async def sv_sqlite(steps: ClSteps, c, rng, sz: dict, bridge):
+    """Step ``sqlite``: a CephVFS database on the EC pool. The SQLite
+    calls run in a thread, their VFS callbacks on the cluster's loop
+    (``bridge``). -> (the VFS, the rows), or None with a line that says
+    why the step was left out."""
+    why = sv_sqlite_shared()
+    if why is not None:
+        emit({"phase": "services", "step": "sqlite", "skipped":
+              f"left out: {why}", "card": steps.card})
+        return None
+    import sqlite3
+
+    from ceph_tpu_torch.services.sqlite_vfs import CephVFS
+
+    vfs = CephVFS(bridge, c.client, CL_EC_POOL)
+    vfs.register()
+    rows = sv_sql_rows(rng, 0, sz["sql_rows"])
+
+    def work() -> dict:
+        out = {}
+        t0 = time.perf_counter()
+        db = sqlite3.connect(f"file:services?vfs={vfs.name}", uri=True,
+                             timeout=CL_OP_TIMEOUT_S)
+        db.execute(SV_SQL_SCHEMA)
+        with db:
+            db.executemany("insert into t values (?, ?, ?, ?)", rows)
+        out["insert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["agg"] = db.execute(SV_SQL_AGG).fetchone()
+        out["query_s"] = time.perf_counter() - t0
+        db.close()
+        t0 = time.perf_counter()
+        db = sqlite3.connect(f"file:services?vfs={vfs.name}", uri=True,
+                             timeout=CL_OP_TIMEOUT_S)
+        out["count"] = db.execute("select count(*) from t").fetchone()[0]
+        out["pages"] = db.execute("pragma page_count").fetchone()[0]
+        db.close()
+        out["reopen_s"] = time.perf_counter() - t0
+        return out
+
+    out = await asyncio.to_thread(work)
+    check(out["agg"] == sv_sql_expect(rows),
+          f"sqlite aggregate {out['agg']}")
+    check(out["count"] == len(rows), f"sqlite count after reopen "
+                                     f"{out['count']}")
+    steps.mark("sqlite", rows=len(rows), rows_per_s=len(rows)
+               / out["insert_s"], insert_s=out["insert_s"],
+               query_s=out["query_s"], reopen_s=out["reopen_s"],
+               db_pages=out["pages"])
+    return vfs, rows
+
+
+async def sv_degraded(steps: ClSteps, c, rng, sz: dict, fs_state: dict,
+                      sql) -> None:
+    """Step ``degraded``: OSD SV_KILLED (it holds EC shards) killed and
+    down; the FS file read and a file written, the SQLite database
+    queried and written while the EC pool runs degraded (K1 rebuilds,
+    K1 and K2 on the writes)."""
+    import sqlite3
+
+    from ceph_tpu_torch.cluster.pg import META_OID
+
+    store = c.stores[SV_KILLED]
+    held = sum(1 for cid in store.list_collections()
+               if cid.startswith(f"{CL_EC_POOL}.")
+               for oid in store.list_objects(cid) if oid != META_OID)
+    check(held > 0, f"services: OSD {SV_KILLED} holds no EC shard")
+    await c.kill_osd(SV_KILLED)
+    await c.wait_down(SV_KILLED, timeout=30)
+    fs, model = fs_state["fs"], fs_state["model"]
+    io = sz["io_bytes"]
+    res = await sv_read_back(lambda o, n: fs.read("/big", o, n), model, io)
+    sv_reads_equal(res, "fs degraded read")
+    fs_read = sv_traffic(res, len(model))
+    late = rng.bytes(io)
+    t0 = time.perf_counter()
+    await fs.write("/late", late)
+    check(await fs.read("/late") == late, "fs degraded write read back")
+    fs_write_s = time.perf_counter() - t0
+    sqlite = None
+    if sql is not None:
+        vfs, rows = sql
+        more = sv_sql_rows(rng, len(rows), len(rows)
+                           + sz["sql_degraded_rows"])
+
+        def work() -> dict:
+            out = {}
+            t0 = time.perf_counter()
+            db = sqlite3.connect(f"file:services?vfs={vfs.name}",
+                                 uri=True, timeout=CL_OP_TIMEOUT_S)
+            out["agg"] = db.execute(SV_SQL_AGG).fetchone()
+            out["query_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with db:
+                db.executemany("insert into t values (?, ?, ?, ?)", more)
+            out["insert_s"] = time.perf_counter() - t0
+            out["agg_after"] = db.execute(SV_SQL_AGG).fetchone()
+            db.close()
+            return out
+
+        out = await asyncio.to_thread(work)
+        check(out["agg"] == sv_sql_expect(rows),
+              f"sqlite degraded aggregate {out['agg']}")
+        check(out["agg_after"] == sv_sql_expect(rows + more),
+              f"sqlite degraded write {out['agg_after']}")
+        sqlite = {"query_s": out["query_s"], "insert_s": out["insert_s"],
+                  "rows_inserted": len(more)}
+        vfs.unregister()
+    # every EC shard's hash_info on every OSD, the killed one's included
+    su = next(o for o in c.osds if o is not None).sinfo_for(
+        c.mon.osdmap.pools[CL_EC_POOL]).su
+    shards, cells = cl_hinfo_check(c.stores, su, "services")
+    steps.mark("degraded", killed=SV_KILLED, shards_held=held,
+               fs_read=fs_read, fs_write_s=fs_write_s, sqlite=sqlite,
+               shards_crc_checked=shards, cells_crc_checked=cells)
+
+
+async def sv_drive(steps: ClSteps, bridge, device, rng, sz: dict) -> None:
+    """The services phase on the cluster's loop (``bridge``'s)."""
+    from ceph_tpu_torch.cluster import TestCluster
+    from ceph_tpu_torch.cluster.client import RadosError
+    from ceph_tpu_torch.placement.osdmap import Pool
+    from ceph_tpu_torch.services.rbd import RBD
+    from ceph_tpu_torch.services.rgw import RGWLite
+
+    c = TestCluster(n_osds=CL_OSDS, out_interval=CL_OUT_INTERVAL,
+                    osd_conf={"osd_ec_cold_shape_bytes":
+                              CL_COLD_SHAPE_BYTES}, device=device)
+    steps.cluster = c
+    await c.start()
+    try:
+        steps.start()
+        c.client.op_timeout = CL_OP_TIMEOUT_S
+        await c.client.create_pool(Pool(
+            id=CL_REP_POOL, name="services", size=3, min_size=2,
+            pg_num=CL_PG_NUM, crush_rule=0))
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="services_data", size=11, min_size=8,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await c.wait_active(60)
+        warmed = await c.client._placement.prewarm(
+            c.client.osdmap, [CL_REP_POOL, CL_EC_POOL])
+        check(warmed == 2 * CL_PG_NUM, f"services prewarm {warmed}")
+        # RBD and RGW keep their state in omap, which an EC pool refuses
+        # (as in the reference): both raise EOPNOTSUPP there
+        refused = {}
+        for what, make in (
+                ("rbd", lambda: RBD(c.client, CL_EC_POOL).create(
+                    "refused", 4 << 20)),
+                ("rgw", lambda: RGWLite(c.client, CL_EC_POOL).create_bucket(
+                    "refused"))):
+            try:
+                await make()
+            except RadosError as e:
+                refused[what] = e.code
+        check(refused == {"rbd": -95, "rgw": -95},
+              f"services: RBD/RGW on the EC pool gave {refused}")
+        steps.mark("setup", prewarmed_pgids=warmed, ec_refusals=refused)
+        fs_state = await sv_fs(steps, c, rng, sz)
+        await sv_rbd(steps, c, rng, sz)
+        await sv_crypto(steps, c, rng, sz)
+        await sv_mirror(steps, c, rng, sz, device)
+        await sv_rgw(steps, c, rng, sz)
+        sql = await sv_sqlite(steps, c, rng, sz, bridge)
+        await sv_degraded(steps, c, rng, sz, fs_state, sql)
+    finally:
+        await c.stop()
+        steps.cluster = None
+
+
+def services_phase(card: str, rng, device=None, **sizes) -> dict:
+    """The client services tier on the cluster (see the SV_* constants):
+    a TestCluster on ``device`` (the card when None, as a user leaves
+    it) built and driven on the loop of a ``ClusterLoopThread``, whose
+    thread CephVFS's SQLite callbacks call into; every count set to 0 at
+    its start; then steps ``fs``, ``rbd``, ``rbd_crypto``, ``mirror``,
+    ``rgw``, ``sqlite`` and ``degraded``, a line each (``sizes``
+    overrides SV_SIZES). Every read must equal the host's copy; K1 and
+    K2 must launch in ``fs``, ``sqlite`` (when it runs) and
+    ``degraded``; no step may call the rs byte API, decode on the host
+    engine or fail a placement lookup -> {"lines", "launches",
+    "drive_s"}."""
+    from ceph_tpu_torch.services.sqlite_vfs import ClusterLoopThread
+
+    sz = {**SV_SIZES, **sizes}
+    emit({"phase": "services", "cuts": {
+        k: {"from": v, "to": sz[k]} for k, v in SV_FULL.items()
+        if sz[k] != v}, "card": card})
+    steps = ClSteps(card, phase="services")
+    bridge = ClusterLoopThread()
+    try:
+        t0 = time.perf_counter()
+        bridge.call(sv_drive(steps, bridge, device, rng, sz),
+                    timeout=SV_TIMEOUT_S)
+        drive_s = time.perf_counter() - t0
+    finally:
+        bridge.stop()
+        steps.close()
+    for step, line in steps.lines.items():
+        check(line["rs_byte_api"] == {"encode_chunks": 0,
+                                      "decode_chunks": 0},
+              f"services {step}: rs byte API {line['rs_byte_api']}")
+        check(line["decode_host_rounds"] == 0,
+              f"services {step}: {line['decode_host_rounds']} decode "
+              "rounds on the host engine")
+    cl_lookups_check(steps, "services")
+    for step in ("fs", "sqlite", "degraded"):
+        if step not in steps.lines:
+            check(step == "sqlite", f"services: no step {step}")
+            continue
+        for key in ("gf_matmul", "crc32c"):
+            n = steps.lines[step]["launches"][key]
+            check(n > 0, f"services {step} launched {key} {n} times")
+    check(steps.lines["degraded"]["decode_batches"] > 0,
+          "services degraded: no decode batch")
+    launches = steps.totals()
+    emit({"phase": "services_launches", **launches, "drive_s": drive_s})
+    return {"lines": steps.lines, "launches": launches, "drive_s": drive_s}
+
+
+def sv_batch_times(lines: dict, rng, device=None) -> dict:
+    """K1 and K2 alone, each against its plain version, at the mean
+    batches phase ``services`` made (``lines``, its lines by step): the
+    cases of each SV_TIMED step that ran -> ``batch_times``' results."""
+    from ceph_tpu_torch.ec import load_codec
+
+    codec = load_codec(CL_EC_PROFILE, device=device)
+    timed = {}
+    for tag, (step, kind, cases) in SV_TIMED.items():
+        line = lines.get(step)
+        if line is None or not line[f"{kind}_batches"]:
+            continue
+        b = round(line[f"{kind}_stripes"] / line[f"{kind}_batches"])
+        timed.update(batch_times(codec.device, rng, codec, b, ECB_SU, tag,
+                                 cases))
+    return timed
 
 
 def pr_rss_bytes(pid: int) -> int:
@@ -4264,10 +5096,15 @@ def main() -> int:
     # ---- phase 11: the cluster wire carrying the EC fan-out (K1 and K2
     # through the ECBatcher) over LocalBus, TCP, signed TCP and shm
     t0 = time.perf_counter()
+    import importlib.util
+
     emit({"phase": "msg", "transport": "tcp_secure", "skipped":
-          "left out: secure mode imports the cryptography package, which "
-          "the H100 machine does not have; tests/test_torch_auth.py runs "
-          "it on the CPU"})
+          ("left out: secure mode imports the cryptography package, which "
+           "this machine does not have"
+           if importlib.util.find_spec("cryptography") is None else
+           "left out of MSG_TRANSPORTS for the script's time budget "
+           "(850 s)")
+          + "; tests/test_torch_auth.py runs it on the CPU"})
     wire = msg_phase(dev, rng, smi.splitlines()[0])
     for key in ("gf_matmul", "crc32c"):
         for kind, line in wire["lines"].items():
@@ -4285,7 +5122,24 @@ def main() -> int:
               f"the cluster phase launched {key} {cl['launches'][key]} times")
     seconds["cluster"] = time.perf_counter() - t0
 
-    # ---- phase 13: the cluster tier across processes (3 Paxos mons, 12
+    # ---- phase 13: the client services (osdc/, services/) on that
+    # deployment: FSLite, the striper and SQLite on the EC pool (K1, K2),
+    # RBD with a snapshot, a clone and a mirror, and RGW over HTTP on the
+    # replicated pool, then a degraded read (K1 rebuilds)
+    t0 = time.perf_counter()
+    sv = services_phase(smi.splitlines()[0], rng)
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(sv["launches"][key] > 0,
+              f"the services phase launched {key} {sv['launches'][key]} "
+              "times")
+    seconds["services"] = time.perf_counter() - t0
+    # K1 and K2 alone at the batches that phase made
+    t0 = time.perf_counter()
+    sv_timed = sv_batch_times(sv["lines"], rng)
+    timed.update(sv_timed)
+    seconds["services_times"] = time.perf_counter() - t0
+
+    # ---- phase 14: the cluster tier across processes (3 Paxos mons, 12
     # OSD daemons on the card, each with its own CUDA context) over shm,
     # then TCP
     t0 = time.perf_counter()
@@ -4295,7 +5149,7 @@ def main() -> int:
               f"the proc phase launched {key} {pr['launches'][key]} times")
     seconds["proc"] = time.perf_counter() - t0
 
-    # ---- phase 14: the multi-device data plane (parallel/) on a virtual
+    # ---- phase 15: the multi-device data plane (parallel/) on a virtual
     # mesh of 8 slots over the card: K1 and K2 on every slot, the copies
     # between slots and K6's XOR combines
     t0 = time.perf_counter()
@@ -4323,10 +5177,17 @@ def main() -> int:
         paths["codecs"] = cd["launches"][name]
         paths["msg"] = wire["launches"][name]
         paths["cluster"] = cl["launches"][name]
+        paths["services"] = sv["launches"][name]
         paths["proc"] = pr["launches"][name]
         paths["mesh"] = mesh["launches"][name]
         return paths
 
+    # the batcher batches K1 and K2 were timed at on the cluster and
+    # services paths
+    ec_gf = [*(f"gf_{t}_{s}" for t in CL_TIMED for s in ("write", "decode")),
+             *(k for k in sv_timed if k.startswith("gf_"))]
+    ec_crc = [*(f"crc_{t}_write" for t in CL_TIMED),
+              *(k for k in sv_timed if k.startswith("crc_"))]
     table = [
         {"name": "gf_matmul", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
@@ -4338,16 +5199,14 @@ def main() -> int:
                             timed["gf_batch_decode"]["max_abs_err"],
                             timed["gf_lrc_encode"]["max_abs_err"],
                             timed["gf_clay_round"]["max_abs_err"],
-                            *(timed[f"gf_{t}_{s}"]["max_abs_err"]
-                              for t in CL_TIMED for s in ("write", "decode")),
+                            *(timed[k]["max_abs_err"] for k in ec_gf),
                             timed["gf_mesh_repair"]["max_abs_err"],
                             timed["gf_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("gf_matmul"),
          "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
                           "gf_batch_decode", "gf_lrc_encode",
                           "gf_clay_round",
-                          *(f"gf_{t}_{s}" for t in CL_TIMED
-                            for s in ("write", "decode")),
+                          *ec_gf,
                           "gf_mesh_repair", "gf_mesh_write")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
@@ -4360,14 +5219,13 @@ def main() -> int:
                             timed["crc_lrc_encode"]["max_abs_err"],
                             *(timed[f"crc_store_{k}"]["max_abs_err"]
                               for k in ST_SHAPES),
-                            *(timed[f"crc_{t}_write"]["max_abs_err"]
-                              for t in CL_TIMED),
+                            *(timed[k]["max_abs_err"] for k in ec_crc),
                             timed["crc_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
                           "crc_batch_write", "crc_lrc_encode",
                           *(f"crc_store_{k}" for k in ST_SHAPES),
-                          *(f"crc_{t}_write" for t in CL_TIMED),
+                          *ec_crc,
                           "crc_mesh_write")},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",
@@ -4381,6 +5239,7 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["straw2"],
                               "cluster": cl["launches"]["straw2"],
+                              "services": sv["launches"]["straw2"],
                               "proc": pr["launches"]["straw2"],
                               "mesh": mesh["launches"]["straw2"]},
          "shapes": shapes("straw2_config5", "straw2_65536")},
@@ -4398,6 +5257,7 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["crush_rule"],
                               "cluster": cl["launches"]["crush_rule"],
+                              "services": sv["launches"]["crush_rule"],
                               "proc": pr["launches"]["crush_rule"],
                               "mesh": mesh["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
@@ -4412,6 +5272,7 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"codecs": cd["launches"]["gf2_xor"],
                               "cluster": cl["launches"]["gf2_xor"],
+                              "services": sv["launches"]["gf2_xor"],
                               "proc": pr["launches"]["gf2_xor"]},
          "shapes": shapes("gf2_encode", "gf2_decode")},
     ] + [
@@ -4422,7 +5283,8 @@ def main() -> int:
          "max_abs_err": max(mesh["edge_err"],
                             timed[f"k6_{entry}"]["max_abs_err"]),
          "library_ms": None,
-         "launches_by_path": {"mesh": mesh["launches"][entry]}}
+         "launches_by_path": {"services": sv["launches"][entry],
+                              "mesh": mesh["launches"][entry]}}
         for entry in K6_ENTRIES]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -337,6 +337,30 @@ def test_plain_engine_edge_maps_cover_both_rules():
     assert {edges[name][1] for name in chip_smoke.PL_EDGE_PLAIN} == {0, 1}
 
 
+def test_edge_oracle_workers_match_do_rule():
+    """chip_smoke.py's edge maps take their expected rows from
+    ``CrushMap.do_rule`` in forked workers (``pl_oracle``): on a few maps,
+    with chunks that split a map's inputs unevenly, the rows equal
+    ``do_rule`` called in this process, padded to numrep."""
+    edges = chip_smoke.rule_edge_maps()
+    rng = np.random.default_rng(3)
+    maps = {}
+    for name in ("flat2_indep", "tree33_firstn", "zero_flat_indep"):
+        m, ruleno, numrep, w = edges[name]
+        w = (np.full(bulk.CompiledMap(m).max_devices, 0x10000,
+                     dtype=np.uint32) if w is None else w)
+        maps[name] = (m, ruleno, numrep, w,
+                      rng.integers(0, 2**32, 23, dtype=np.uint32))
+    rows, seconds = chip_smoke.pl_oracle(maps, workers=2, chunk=5)
+    assert set(rows) == set(seconds) == set(maps)
+    for name, (m, ruleno, numrep, w, xs) in maps.items():
+        want = [row + [cm.ITEM_NONE] * (numrep - len(row))
+                for row in (m.do_rule(ruleno, int(x), numrep, w)
+                            for x in xs)]
+        assert rows[name].dtype == np.int32
+        assert rows[name].tolist() == want, name
+
+
 def _u32(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
                             .view(np.int32))

@@ -283,7 +283,7 @@ def test_cluster_phase_on_the_cpu(monkeypatch):
     for step, line in lines.items():
         assert line["rs_byte_api"] == {"encode_chunks": 0,
                                        "decode_chunks": 0}, step
-        assert line.get("placement_failed_ops", 0) == 0, step
+        assert line["placement_failures"] == 0, step
     assert lines["write"]["encode_batches"] > 0
     assert lines["degraded_read"]["decode_batches"] > 0
     assert lines["recovery"]["decode_batches"] > 0

@@ -215,3 +215,80 @@ def test_a_mesh_with_no_device_and_no_card_raises(monkeypatch):
         runtime.serving_mesh(8, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         dryrun_multichip.dryrun_multichip(2)
+
+
+SERVICES_TIER = ("ceph_tpu_torch.osdc", "ceph_tpu_torch.osdc.striper",
+                 "ceph_tpu_torch.osdc.striped_client",
+                 "ceph_tpu_torch.osdc.object_cacher",
+                 "ceph_tpu_torch.services", "ceph_tpu_torch.services.rbd",
+                 "ceph_tpu_torch.services.rbd_crypto",
+                 "ceph_tpu_torch.services.mirror",
+                 "ceph_tpu_torch.services.fs",
+                 "ceph_tpu_torch.services.sqlite_vfs",
+                 "ceph_tpu_torch.services.rgw_acl",
+                 "ceph_tpu_torch.services.rgw",
+                 "ceph_tpu_torch.services.rgw_swift",
+                 "ceph_tpu_torch.services.rgw_notify",
+                 "ceph_tpu_torch.services.rgw_sync",
+                 "ceph_tpu_torch.mgr_modules.dashboard",
+                 "ceph_tpu_torch.mgr_modules.rgw_lc")
+
+
+@pytest.mark.parametrize("module", SERVICES_TIER)
+def test_services_tier_module_is_the_ports_own(module):
+    """The client library above RadosClient (``osdc/``, ``services/``)
+    and the two mgr modules that stand on it are among the port's (so the
+    subprocess and static scans above cover them), none of them names
+    JAX or the JAX package, and every one of them resolves to a file of
+    the port when it is imported."""
+    import importlib
+
+    assert module in _port_modules()
+    rel = module.replace(".", "/")
+    path = ROOT / (rel + ".py")
+    if not path.exists():
+        path = ROOT / rel / "__init__.py"
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ceph_tpu"), name
+    mod = importlib.import_module(module)
+    assert Path(mod.__file__).resolve() == path.resolve()
+
+
+def test_dashboard_and_rgw_lc_use_the_ports_rgw():
+    """The dashboard serves through rgw's own ``HttpFrontend`` and rgw_lc
+    builds its RGWLite from the port's rgw, as the reference's modules
+    do."""
+    import inspect
+
+    from ceph_tpu_torch.mgr_modules import dashboard, rgw_lc
+    from ceph_tpu_torch.services import rgw
+
+    assert dashboard.HttpFrontend is rgw.HttpFrontend
+    assert "NotImplementedError" not in inspect.getsource(rgw_lc)
+
+
+def test_rbd_crypto_imports_without_cryptography():
+    """``cryptography`` is imported where a cipher is built, not when
+    ``rbd_crypto`` is imported: with the package hidden the module
+    imports, and building a cipher raises ImportError (the H100 machine
+    has no ``cryptography``)."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'cryptography' or name.startswith('cryptography.'):\n"
+        "            raise ImportError('hidden: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from ceph_tpu_torch.services import rbd_crypto\n"
+        "try:\n"
+        "    rbd_crypto._aes_gcm(b'k' * 32)\n"
+        "except ImportError as e:\n"
+        "    print('raised', e)\n"
+        "else:\n"
+        "    raise SystemExit('no ImportError at use')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "raised hidden: cryptography" in res.stdout

@@ -7,7 +7,7 @@ launcher's client too. The three mon-quorum cases are in
 two halves on two workers. The two MDS cases
 (``test_multiprocess_mds_kill9_replay``,
 ``test_multiprocess_multimds_pin_and_cross_rename``) wait for
-``services/`` (ROADMAP §1 item 7): the port's MDS role raises. The cases
+``services/mds.py`` (ROADMAP §1 item 7): the port's MDS role raises. The cases
 are copied with only their imports and device changed, and the outer
 deadline of each run cut from 480 s to 200 s (a port daemon starts in a
 few seconds, a JAX one compiles). The reference's own words follow.
