@@ -1,8 +1,9 @@
 """Daemon entry point for multi-process clusters (src/ceph_osd.cc /
 src/ceph_mon.cc main() role).
 
-Runs ONE daemon — a mon (single or paxos rank) or an OSD — as its own
-OS process on a NetBus (msg/netbus.py), with a durable store. Spawned
+Runs ONE daemon — a mon (single or paxos rank), an OSD or an MDS — as
+its own OS process on a NetBus (msg/netbus.py), with a durable store.
+Spawned
 by procstart.ProcCluster (the vstart.sh:100-125 launch role) or by
 hand:
 
@@ -20,20 +21,22 @@ the cluster are built to survive.
 ceph_tpu_torch's own copy of ``ceph_tpu/cluster/daemon.py``. The device
 seam: ``--device {cpu,cuda}`` (the card unless the caller names the
 CPU) takes the place of the reference's ``--platform``. An OSD passes it
-to ``OSDLite``. With ``cpu`` the daemon pins torch to one intra-op
-thread (the counterpart of pinning one virtual CPU device). With
-``cuda`` an OSD creates its CUDA context and loads the kernel libraries
-before its bus starts, so its first launch cannot stall a heartbeat
-past ``--hb-grace``; it exits with an error when there is no card. The
-mon uses no device. Each daemon writes its start-up seconds to
-``<book>/<role>.<id>.startup`` (JSON) before its ``.ready`` marker, and
-an OSD's admin socket serves ``kernel launches`` (the launch counts of
-this process, ``{"reset": true}`` sets them to 0) and ``device status``
-(its CUDA context, card and card memory). A WalStore OSD takes its
-checkpoint threshold from ``walstore_compact_bytes`` (the reference's
-daemon leaves the store's default, which is the option's default). The
-MDS role needs ``services/mds.py``, which the port takes in its next
-slice (ROADMAP §1 item 7), and raises.
+to ``OSDLite``, an MDS to its own ``RadosClient``. With ``cpu`` the
+daemon pins torch to one intra-op thread (the counterpart of pinning one
+virtual CPU device). With ``cuda`` an OSD or an MDS creates its CUDA
+context and loads the kernel libraries before its bus starts, so its
+first launch cannot stall a heartbeat past ``--hb-grace`` (an MDS's
+client resolves placement on K4); it exits with an error when there is
+no card. The mon uses no device. Each daemon writes its start-up
+seconds to ``<book>/<role>.<id>.startup`` (JSON: import, CUDA context,
+kernel load and the daemon's own start, for an MDS its journal's replay)
+before its ``.ready`` marker, and an OSD's or an MDS's admin socket
+serves ``kernel launches`` (the launch counts of this process,
+``{"reset": true}`` sets them to 0) and ``device status`` (its CUDA
+context, card and card memory); the MDS, which the reference gives no
+admin socket, serves only those two. A WalStore OSD takes its checkpoint threshold from
+``walstore_compact_bytes`` (the reference's daemon leaves the store's
+default, which is the option's default).
 """
 from __future__ import annotations
 
@@ -97,7 +100,7 @@ def _bind_device(device: str, role: str) -> dict:
     and the port (``python -m`` imports the package before ``main``).
     ``cpu`` pins torch to one intra-op thread: a dev cluster's daemons
     share the host's cores, and the plain versions are small tensor
-    ops. ``cuda`` (an OSD) creates the CUDA context and loads every
+    ops. ``cuda`` (an OSD or an MDS) creates the CUDA context and loads every
     kernel library: fifteen processes doing that at once take seconds,
     which must pass before the OSD boots and starts its heartbeat, not
     after (the stall the reference's ``_pin_platform`` docstring
@@ -110,7 +113,7 @@ def _bind_device(device: str, role: str) -> dict:
     if device == "cpu":
         torch.set_num_threads(1)
         return out
-    if role != "osd":
+    if role == "mon":
         return out  # the mon uses no device
     from .. import kernels
     from ..device import resolve
@@ -214,25 +217,44 @@ async def _amain(args, startup: dict) -> None:
                          hb_interval=args.hb_interval, conf=conf,
                          device=args.device)
     elif args.role == "mds":
-        # metadata daemon (src/ceph_mds.cc main role): needs
-        # services/mds.py
-        raise NotImplementedError(
-            "the mds role needs services/mds.py, which the port takes in "
-            "its next slice (ROADMAP §1 item 7)")
+        # metadata daemon (src/ceph_mds.cc main role): its own RADOS
+        # client on the bus; metadata pool via --pool. Spawned AFTER
+        # the pool exists (ProcCluster.start_mds orchestration).
+        from ..services.mds import MDSLite
+        from .client import RadosClient
+
+        client = RadosClient(bus, name=f"client.mds{args.id}",
+                             device=args.device)
+        await client.connect()
+        daemon = MDSLite(
+            bus, client, args.pool, name=f"mds.{args.id}",
+            data_pool=args.data_pool if args.data_pool >= 0 else None)
     else:
         raise SystemExit(f"unknown role {args.role!r}")
 
+    t0 = time.perf_counter()
     await daemon.start()
+    # the daemon's own start: an MDS loads its tables and replays its
+    # journal here
+    startup["daemon_start_s"] = time.perf_counter() - t0
+    asok = os.path.join(args.store_dir, f"{args.role}.{args.id}.asok")
+    admin = own_admin = None
     if hasattr(daemon, "start_admin"):
         # `ceph daemon <name> <cmd>` surface, one socket per daemon
-        await daemon.start_admin(os.path.join(
-            args.store_dir, f"{args.role}.{args.id}.asok"))
-        daemon.admin.register("kernel launches", _kernel_launches,
-                              "this process's kernel launch counts "
-                              "{reset?}")
-        daemon.admin.register("device status", _device_status,
-                              "this process's CUDA context and card "
-                              "memory")
+        await daemon.start_admin(asok)
+        admin = daemon.admin
+    elif args.role == "mds":
+        # the MDS keeps no admin socket of its own: this one serves the
+        # process's kernel launches and device
+        from ..utils.admin import AdminSocket
+
+        admin = own_admin = AdminSocket(asok)
+        await admin.start()
+    if admin is not None:
+        admin.register("kernel launches", _kernel_launches,
+                       "this process's kernel launch counts {reset?}")
+        admin.register("device status", _device_status,
+                       "this process's CUDA context and card memory")
     with open(os.path.join(args.book,
                            f"{args.role}.{args.id}.startup"), "w") as f:
         json.dump(startup, f)
@@ -259,6 +281,8 @@ async def _amain(args, startup: dict) -> None:
             await asyncio.wait_for(daemon.stop(), 5)
         except Exception:
             pass
+        if own_admin is not None:
+            await own_admin.stop()
         await bus.close()
         try:
             os.unlink(ready)

@@ -55,7 +55,7 @@ each as twins, one with ``device_csum=True`` on the card and one with
 the C++ core's checksums, take the same transactions in turn: 256 RBD
 objects of 4 MiB (1 GiB), then on WalStore one checkpoint, umount and
 mount (one checksum call over all 262,144 blocks each), and on
-BlueStoreLite 8,192 aligned 4 KiB overwrites and reads of every object
+BlueStoreLite 4,096 aligned 4 KiB overwrites and reads of every object
 before and after a remount. Every read is held against the twin and a
 numpy model, every stored checksum against the C++ core's CRC32C, K2's
 launches against the device twin's checksum calls, and a byte flipped on
@@ -179,6 +179,50 @@ read, read degraded with one OSD down, no host gather); and the multi-chip
 dry run. It prints each mesh step's time beside the one-device step's and
 K6's times at the shapes the path gave it beside their bounds.
 
+Phase ``mds`` drives the CephFS metadata daemon (``services/mds.py``) on
+phase ``services``' deployment: ``FSLite.mkfs`` with the metadata on the
+replicated pool, MDS ranks 0 and 1 with the file data on the EC pool and
+two FSClients, the second with the ObjectCacher. ``tree``: 8 directories,
+2 pinned to rank 1, 256 files of 64 KiB created by the two clients in
+turn, each listing what the other made, both closing their files and
+reading what the other made; ``caps``: the cached client's files read by
+the other while it holds their caps (a recall that outlasts the MDS's 2 s
+revoke timeout evicts it: recorded, with the reads it made short);
+``race``: creates on both ranks at once (the inode numbers their shared
+counter hands out twice are counted); ``data``: 1 GiB in 4
+MiB writes over 4 files, both clients writing at once, read back at queue
+depth 16 (K1 and K2 on every write batch); ``overwrites``: 1,024 aligned 4
+KiB overwrites of one file at depth 16; ``rename``: 64 cross-subtree
+renames, rank 0 to 1 and back; ``snap``: a snapshot, a mutation, the
+snapshot read back; ``quota``: a bytes quota refuses the write past it;
+``crash``: rank 0 dies mid-rename and a new rank 0 replays its journal;
+``degraded``: an OSD down, the 1 GiB read back (K1 rebuilds). Every step
+gates on no rs byte-API call, no decode on the host engine and no failed
+placement lookup, and counts the cap revokes and any live client evicted;
+K1 and K2 are then timed alone at its mean batches. Its process arm runs
+MDS ranks 0 and 1 as daemon processes (``ProcCluster.start_mds``): 64
+files of 4 MiB written and read back, kill -9 of rank 0 and its revival
+with the namespace back, a subtree pinned to rank 1 and a cross-subtree
+rename both ways, the MDS daemons' start-up seconds and launches (their
+admin sockets), ``ceph_daemon`` and the exporter against the live
+sockets. It runs in phase ``proc``'s TCP cluster where the memory phase
+``proc`` measured (VmRSS, RssAnon, RssFile and Pss by role, MemAvailable)
+leaves room for two more daemons, else on a cluster of its own.
+
+Phase ``tools`` runs the operator CLIs (``ceph_tpu_torch.tools``) through
+their ``main`` on the card: ``crushtool --test --device`` on config 5's
+1,000 OSDs at 1,048,576 inputs for both rules (the CLI's counts against
+the kernel's rows, the rows' head against the plain engine, K4 timed);
+``osdmaptool --test-map-pgs`` against the library's mapping; ``rados
+bench`` 4 MiB x 16 on an EC 8+3 pool, write then ``seq`` (every read equal
+to the written object); ``rbd`` create / import / export / snap / clone of
+a 256 MiB image, exact; ``objectstore_tool``'s export and import of one
+PG; ``dencoder`` over every registered message type; ``ceph status``,
+``osd tree`` and ``osd pool ls``; and ``swarm`` at its own defaults
+(2,000 clients, 8 s, 10 OSDs, 1,000,000 objects, Zipf 1.1) with no op
+error and K1, K2 and K4 launched. K1 and K2 are then timed at the bench's
+mean encode batch.
+
 Every phase prints one JSON line. The line before the last is the kernel
 table ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -188,6 +232,8 @@ device is present. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -236,6 +282,23 @@ COPY_BYTES = 256 * 1024 * KIB  # pinned copy-rate probe, each way
 #: over 0.5 s late in this script, where no pad under 2 s holds every
 #: K3/K4 record; even 2 s missed two records of 30 once.
 PROFILE_PADS_S = (0.05, 0.5, 2.0)
+#: The pads ``batch_times`` and the tools' K4 times try: the 2 s pad (up to
+#: 2 x 2 s a case, 14 cases) is cut to keep the script near 900 s with
+#: phases mds and tools; a case whose records the 0.5 s window misses
+#: prints the most it caught.
+BT_PADS = PROFILE_PADS_S[:2]
+#: Calls a plain version is timed over (median) at the main path's and the
+#: batchers' shapes: 20 took ~22 s of plain calls a run (the main path's
+#: CRCs 0.2-0.3 s a call); cut to keep the script near 900 s.
+PLAIN_REPS = 5
+#: The script's cuts to keep it near 900 s with phases mds and tools, each
+#: printed in a line of its own at the start: what, from, to.
+SCRIPT_CUTS = {
+    "batch_times profile pads (s)": (list(PROFILE_PADS_S), list(BT_PADS)),
+    "plain-version timing reps": (20, PLAIN_REPS),
+    "store randwrites (ST_RANDWRITES)": (8192, 4096),
+    "mds tree files (MD_CUTS)": (256, 128),
+}
 #: What ``profiled`` says of a trace's capture, printed beside a time.
 PROFILE_CLOCK = ("launches", "caught", "pad_s", "caught_by_pad",
                  "launch_to_device_ms")
@@ -280,10 +343,12 @@ PL_POOLS = {"rbd": (1, 3, 32768, 0), "ec_8_3": (2, 11, 8192, 1)}
 #: and on a WalStore with compression off and a WAL never compacted on its
 #: own (one explicit checkpoint of the whole GiB); then fio-style
 #: randwrite bs=4k overwrites (4 KiB aligned, fio's default blockalign)
-#: from a seeded generator: 8,192 of them (16,384 took 37-42 s; cut to
-#: keep the whole script near 650 s once phase cluster joined it).
+#: from a seeded generator: 4,096 of them (16,384 took 37-42 s; cut to
+#: 8,192 to keep the whole script near 650 s once phase cluster joined
+#: it, and to 4,096 (13.6 s for both twins at 8,192) once phases mds and
+#: tools did).
 ST_OBJECTS, ST_OBJECT_BYTES, ST_DEVICE_BYTES = 256, 4 << 20, 4 << 30
-ST_RANDWRITES = 8192
+ST_RANDWRITES = 4096
 ST_POOL = "1.0"
 ST_IMAGE = "rbd_data.10226b8b4567"
 #: Free disk the phase needs under its temporary directory: two twins of
@@ -573,7 +638,7 @@ def kernel_name(e) -> str:
     return name.removeprefix("void ").split("(")[0].split("<")[0].split("::")[-1]
 
 
-def profile_steps(step, reps: int = 10) -> dict:
+def profile_steps(step, reps: int = 10, pads=PROFILE_PADS_S) -> dict:
     """Run ``step`` ``reps`` times back to back under torch.profiler
     (``profiled``): each kernel's device ms per step, and the share of
     the window from the first to the last device event in which the card
@@ -583,7 +648,7 @@ def profile_steps(step, reps: int = 10) -> dict:
     it; the idle share counts only caught records."""
     step()
     torch.cuda.synchronize()
-    events, clock = profiled(lambda: [step() for _ in range(reps)])
+    events, clock = profiled(lambda: [step() for _ in range(reps)], pads)
     spans = [e.time_range for e in events]
     durations = {}
     for e in events:
@@ -971,9 +1036,10 @@ def batch_times(dev, rng, codec, b: int, su: int, tag: str,
     for key, kernel, plain, (nbytes, ops) in (runs[c] for c in cases):
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{key}: kernel and plain differ by {err}")
-        ms, plain_ms = time_ms(kernel, reps=50), time_ms(plain)
+        ms = time_ms(kernel, reps=50)
+        plain_ms = time_ms(plain, reps=PLAIN_REPS, warmup=1)
         b_ms, b_by = bound(nbytes, ops)
-        prof = profile_steps(kernel, reps=20)
+        prof = profile_steps(kernel, reps=20, pads=BT_PADS)
         timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "max_abs_err": err,
                       "device_ms": device_ms(prof), "stripes": b}
@@ -3839,15 +3905,17 @@ def services_phase(card: str, rng, device=None, **sizes) -> dict:
     return {"lines": steps.lines, "launches": launches, "drive_s": drive_s}
 
 
-def sv_batch_times(lines: dict, rng, device=None) -> dict:
+def sv_batch_times(lines: dict, rng, device=None,
+                   table: dict = SV_TIMED) -> dict:
     """K1 and K2 alone, each against its plain version, at the mean
-    batches phase ``services`` made (``lines``, its lines by step): the
-    cases of each SV_TIMED step that ran -> ``batch_times``' results."""
+    batches a phase made (``lines``, its lines by step; phase
+    ``services``' by default): the cases of each step of ``table`` (tag:
+    step, its batches, cases) that ran -> ``batch_times``' results."""
     from ceph_tpu_torch.ec import load_codec
 
     codec = load_codec(CL_EC_PROFILE, device=device)
     timed = {}
-    for tag, (step, kind, cases) in SV_TIMED.items():
+    for tag, (step, kind, cases) in table.items():
         line = lines.get(step)
         if line is None or not line[f"{kind}_batches"]:
             continue
@@ -3891,10 +3959,11 @@ class PrSteps:
     launcher's own launches (the client's placement, K4), each as the
     step's delta. A daemon revived under a new pid counts from 0."""
 
-    def __init__(self, c, card: str, transport: str):
+    def __init__(self, c, card: str, transport: str, phase: str = "proc"):
         from ceph_tpu_torch import kernels
 
         self.c, self.card, self.transport = c, card, transport
+        self.phase = phase
         self.kernels = kernels
         self.lines: dict[str, dict] = {}
         #: osd id -> its daemons' launches over the phase, by kernel
@@ -3944,7 +4013,8 @@ class PrSteps:
                 mine[n] += d
             for k, v in perf.items():
                 counters[k] += v - (perf0.get(k, 0) if same else 0)
-        line = {"phase": "proc", "transport": self.transport, "step": step,
+        line = {"phase": self.phase, "transport": self.transport,
+                "step": step,
                 "seconds": now["t"] - last["t"],
                 "osdmap_epoch": self.c.client.osdmap.epoch,
                 "launches": launches,
@@ -4144,12 +4214,16 @@ def pr_shards(data_dir: str, placed: dict, su: int, workers: int) -> dict:
 async def pr_cluster(data_dir: str, backend: str, device, card: str,
                      rng, objects: int, rep_objects: int,
                      degraded_writes: int, chaos: bool,
-                     scan_workers: int = PR_SCAN_WORKERS) -> dict:
+                     scan_workers: int = PR_SCAN_WORKERS,
+                     mds_arm: bool = False) -> dict:
     """One ProcCluster of the proc phase (see the PR_* constants) on one
     event loop: start, pools, writes and a read-back; with ``chaos`` the
     kill, degraded read and writes, revival and recovery, the leader
-    mon's kill, a pool created after the failover and a last read. After
-    the stop every EC shard is checked on disk (``pr_shards``)."""
+    mon's kill, a pool created after the failover and a last read; with
+    ``mds_arm`` then phase mds's process arm (``mp_arm``). The start and
+    write lines print the daemons' memory by role (``pr_memory``) and
+    the host's MemAvailable before the start. After the stop every EC
+    shard is checked on disk (``pr_shards``)."""
     from ceph_tpu_torch.cluster import messages as M
     from ceph_tpu_torch.cluster.procstart import ProcCluster
     from ceph_tpu_torch.placement.osdmap import Pool
@@ -4162,6 +4236,7 @@ async def pr_cluster(data_dir: str, backend: str, device, card: str,
                               PR_WAL_COMPACT_BYTES}, device=device)
     steps = PrSteps(c, card, backend)
     out = {"steps": steps}
+    before = mem_available()
     t0 = time.perf_counter()
     try:
         await c.start()
@@ -4182,7 +4257,9 @@ async def pr_cluster(data_dir: str, backend: str, device, card: str,
         check(warmed == 2 * CL_PG_NUM, f"proc prewarm {warmed}")
         await steps.mark("start", start_s=start_s, quorum=quorum,
                          startup=pr_startup(c), prewarmed_pgids=warmed,
-                         **pr_host(c))
+                         **pr_host(c), memory=pr_memory(c),
+                         MemAvailable_before_start_bytes=before[
+                             "MemAvailable_bytes"])
 
         model = {(CL_EC_POOL, f"rbd_data.{i:016x}"): rng.bytes(
             CL_OBJECT_BYTES) for i in range(objects)}
@@ -4205,8 +4282,11 @@ async def pr_cluster(data_dir: str, backend: str, device, card: str,
         extra = {}
         if c.device.type == "cuda":
             extra = await pr_on_card(c)
+        memory = pr_memory(c)
+        out["fits"] = mp_fits(memory, before)
         line = await steps.mark("write", **cl_traffic(res, nbytes()),
-                                **extra, **pr_host(c))
+                                **extra, **pr_host(c), memory=memory,
+                                mds_fit=out["fits"])
         check(line["ec_batches"] > 0, f"proc {backend} write: no EC batch")
         res = await cl_ops(c.client, reads())
         cl_check(res, f"proc {backend} read")
@@ -4261,6 +4341,8 @@ async def pr_cluster(data_dir: str, backend: str, device, card: str,
             res = await cl_ops(c.client, reads())
             cl_check(res, "proc read after failover")
             await steps.mark("read_after", **cl_traffic(res, nbytes()))
+        if mds_arm:
+            out["mds"] = await mp_arm(c, card, rng, backend)
         su = ECB_SU
         final = c.client.osdmap
         out["placed"] = {}
@@ -4292,8 +4374,11 @@ def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
     recovery, kill -9 of the leader mon and a pool created by the new
     quorum, a last read; every EC shard's hash_info against the C++ core
     after the stop. Then a second cluster over TCP writes and reads
-    ``tcp_objects``. A line per step -> {"lines": by transport and step,
-    "launches": the phase's launches by kernel}."""
+    ``tcp_objects``. Where the shm cluster's memory says that two MDS
+    daemons more fit (``mp_fits``), phase mds's process arm runs in the
+    TCP cluster after its steps. A line per step -> {"lines": by
+    transport and step, "launches": the phase's launches by kernel,
+    "mds": the process arm's result or None, "mds_fit"}."""
     import shutil
     import tempfile
 
@@ -4304,7 +4389,7 @@ def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
                                              "CEPH_TPU_SHM_ARENA_BYTES")}
     os.environ["CEPH_TPU_SHM_DIR"] = ring_dir
     os.environ["CEPH_TPU_SHM_ARENA_BYTES"] = str(PR_SHM_ARENA_BYTES)
-    lines, launches = {}, None
+    lines, launches, mds, fit = {}, None, None, None
     try:
         for backend, n, n_rep, n_late, chaos in (
                 ("shm", objects, rep_objects, degraded_writes, True),
@@ -4312,8 +4397,17 @@ def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
             t0 = time.perf_counter()
             d = os.path.join(root, backend)
             os.mkdir(d)
+            arm = backend == "tcp" and fit["fits"]
+            if backend == "tcp":
+                emit({"phase": "mds", "arm": "process", "where":
+                      "proc_tcp" if arm else "own_cluster", **fit,
+                      "free_share": MP_FREE_SHARE, "card": card})
             out = asyncio.run(pr_cluster(d, backend, device, card, rng, n,
-                                         n_rep, n_late, chaos, scan_workers))
+                                         n_rep, n_late, chaos, scan_workers,
+                                         mds_arm=arm))
+            if backend == "shm":
+                fit = out["fits"]
+            mds = out.get("mds", mds)
             steps = out["steps"]
             for step, line in steps.lines.items():
                 for key in ("ec_decode_cold_host", "ec_batch_failures"):
@@ -4339,7 +4433,8 @@ def proc_phase(card: str, rng, device=None, objects: int = PR_OBJECTS,
                 os.environ[key] = value
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "proc_launches", **launches})
-    return {"lines": lines, "launches": launches}
+    return {"lines": lines, "launches": launches, "mds": mds,
+            "mds_fit": fit}
 
 
 #: Phase mesh: the multi-device data plane (``parallel/``) on a virtual mesh
@@ -4836,6 +4931,1384 @@ def mesh_phase(dev, rng, card: str, cluster_lines: dict | None = None,
             "lines": lines}
 
 
+#: Phase mds, in-process arm: the CephFS metadata daemon
+#: (``services/mds.py``) on phase services' deployment (CL_OSDS OSDs, the
+#: CL_EC_PROFILE pool with its 4 KiB stripe unit and a replicated size-3
+#: pool, CL_PG_NUM PGs each, the cold-shape shield off): ``FSLite.mkfs``
+#: with the metadata on the replicated pool, MDS ranks 0 and 1 with the
+#: file data on the EC pool, and two FSClients, the second with the
+#: ObjectCacher (``cache=True``). ``tree``: ``dirs`` directories, the last
+#: ``pinned`` of them pinned to rank 1, then ``files`` files of
+#: ``file_bytes`` created by the two clients in turn, each client listing
+#: what the other made, then (both clients' files closed) reading it;
+#: ``caps``: ``caps_files`` more files by the cached client read by the
+#: other while their caps are held; ``race``: ``race_files`` creates on
+#: each rank at once (the inode numbers handed out twice are counted);
+#: ``data``: ``data_bytes`` in
+#: MD_IO_BYTES writes over ``data_files`` files (each file's writes in
+#: order: a write that extends a file reads and writes back the striper's
+#: size object), both clients writing at once, read back at queue depth
+#: MD_QD; ``overwrites``: aligned 4 KiB overwrites of one file at MD_QD
+#: (none extends it, so FSClient takes them in flight together);
+#: ``rename``: ``renames`` cross-subtree renames, rank 0 to 1 and back;
+#: ``snap``, ``quota``, ``crash`` (rank 0 dies mid-rename, a new rank 0
+#: replays its journal) and ``degraded`` (OSD MD_KILLED down, the data
+#: read back). The MDSs keep their 2 s revoke timeout.
+MD_FULL = {"dirs": 8, "pinned": 2, "files": 256, "file_bytes": 64 << 10,
+           "caps_files": 128, "race_files": 128, "data_bytes": 1 << 30,
+           "data_files": 4, "overwrites": 1024, "renames": 64}
+#: Counts cut to keep the phase inside MD_BUDGET_S: only those that launch
+#: no EC kernel of their own (``tree``'s files, ``rename``) may be cut. At
+#: MD_FULL the drive took 97.1 s on the H100's host (tree 11.7, caps 7.7,
+#: race 4.0, data 28.2, overwrites 24.3, degraded 14.2): ``files`` at
+#: half. ``caps`` and ``race`` keep their counts: below 128 files the
+#: caps step's evictions (ROADMAP §3 item 11) no longer show.
+MD_CUTS: dict = {"files": 128}
+MD_SIZES = {**MD_FULL, **MD_CUTS}
+MD_IO_BYTES, MD_QD, MD_KILLED = 4 << 20, 16, 1
+MD_QUOTA_BYTES = 1 << 20
+MD_BUDGET_S, MD_TIMEOUT_S = 90.0, 600.0
+#: The batches K1 and K2 are timed at alone after the phase: the data
+#: step's mean encode batch and the degraded step's mean decode batch.
+MD_TIMED = {"mds_data_wb": ("data", "encode", ("write", "crc")),
+            "mds_rb": ("degraded", "decode", ("decode",))}
+
+#: Phase mds, process arm: MDS ranks 0 and 1 as daemon processes
+#: (``ProcCluster.start_mds``) with the metadata on the replicated pool and
+#: the data on the EC pool; the schedule of tests/test_multiprocess.py's
+#: two MDS cases at MP_FILES files of MP_FILE_BYTES: written and read back
+#: exactly, kill -9 of rank 0 between two ops, its revival and the
+#: namespace back, a subtree pinned to rank 1 and a cross-subtree rename
+#: both ways. The clients' timeout outlasts a revival (an OSD daemon took
+#: 13-20 s to start on the H100's host; the reference's test uses 30 s). Where the daemons
+#: fit, the arm runs in phase proc's TCP cluster after its steps: 17
+#: daemons must leave MP_FREE_SHARE of the host's memory free, judged from
+#: the MemAvailable drop phase proc's shm cluster measured. Else a
+#: ProcCluster of its own: 1 mon, MP_OSDS OSDs (EC 8+3's minimum) and the
+#: two MDS daemons.
+MP_FILES, MP_FILE_BYTES, MP_QD = 64, 4 << 20, 16
+MP_CLIENT_TIMEOUT_S, MP_FREE_SHARE, MP_OSDS = 60.0, 0.10, 11
+MP_DOWN_PROBE_S = 3.0
+
+
+class MdSteps(ClSteps):
+    """ClSteps of phase mds, with the caps ledger: the revokes the clients
+    received and the releases that reached an MDS after it had stopped
+    waiting for them (a live client evicted by the revoke timeout). Made
+    before the MDSs start, which register their bound ``handle``."""
+
+    def __init__(self, card: str):
+        from ceph_tpu_torch.cluster import messages as M
+        from ceph_tpu_torch.services.mds import FSClient, MDSLite
+
+        super().__init__(card, phase="mds")
+        self.caps = {"revokes": 0, "late_releases": 0}
+        self._caps0 = dict(self.caps)
+        handle, client_handle = MDSLite.handle, FSClient._handle
+
+        async def mds_handle(mds, src, msg):
+            if isinstance(msg, M.MCapRelease):
+                fut = mds._revokes.get((msg.ino, msg.tid))
+                if fut is None or fut.done():
+                    self.caps["late_releases"] += 1
+            return await handle(mds, src, msg)
+
+        async def fsclient_handle(cl, src, msg):
+            if isinstance(msg, M.MCapRevoke):
+                self.caps["revokes"] += 1
+            return await client_handle(cl, src, msg)
+        self._real += [(MDSLite, "handle", handle),
+                       (FSClient, "_handle", client_handle)]
+        MDSLite.handle = mds_handle
+        FSClient._handle = fsclient_handle
+
+    def start(self) -> None:
+        super().start()
+        self._caps0 = dict(self.caps)
+
+    def mark(self, step: str, **extra) -> dict:
+        caps = {k: v - self._caps0[k] for k, v in self.caps.items()}
+        self._caps0 = dict(self.caps)
+        return super().mark(step, caps=caps, **extra)
+
+
+async def md_read_all(cl, models: dict, io: int) -> dict:
+    """Read every file of ``models`` back through ``cl`` in ``io``-byte
+    requests, MD_QD in flight -> ``sv_run``'s result, each result whether
+    the read equals the model."""
+    async def one(p, off):
+        want = models[p][off:off + io]
+        return await cl.read(p, off, len(want)) == want
+    return await sv_run([lambda p=p, o=o: one(p, o) for p in models
+                         for o in range(0, len(models[p]), io)], MD_QD)
+
+
+async def md_tree(steps: MdSteps, st: dict, rng, sz: dict) -> None:
+    """Step ``tree``: directories on both ranks, files by both clients in
+    turn, each client listing what the other made; then both clients
+    close their files (caps and cached data flushed) and each reads what
+    the other made."""
+    a, b = st["a"], st["b"]
+    dirs = [f"/d{j}" for j in range(sz["dirs"])]
+    pinned = dirs[len(dirs) - sz["pinned"]:]
+    t0 = time.perf_counter()
+    for d in dirs:
+        await a.mkdir(d)
+    for d in pinned:
+        await a.set_subtree_pin(d, 1)
+    mkdir_s = time.perf_counter() - t0
+    files = {f"{dirs[i % len(dirs)]}/f{i:04d}": rng.bytes(sz["file_bytes"])
+             for i in range(sz["files"])}
+    by = {p: (a, b)[i % 2] for i, p in enumerate(files)}
+
+    async def create(p):
+        await by[p].create(p)
+        await by[p].write(p, files[p])
+    res = await sv_run([lambda p=p: create(p) for p in files], 1)
+    create_t = sv_traffic(res, sum(map(len, files.values())))
+    t0 = time.perf_counter()
+    for d in dirs:
+        want = sorted(p.rsplit("/", 1)[1] for p in files
+                      if p.startswith(d + "/"))
+        for cl in (a, b):
+            got = sorted(await cl.listdir(d))
+            check(got == want, f"mds tree: {cl.name} lists {d} as "
+                               f"{got[:4]}... not {want[:4]}...")
+    list_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for cl in (a, b):
+        await cl.close()
+        await cl.connect()
+    close_s = time.perf_counter() - t0
+
+    async def read_other(p):
+        other = b if by[p] is a else a
+        return await other.read(p) == files[p]
+    res = await sv_run([lambda p=p: read_other(p) for p in files], MD_QD)
+    sv_reads_equal(res, "mds tree read of the other client's files")
+    st.update(dirs=dirs, pinned=pinned, files=files)
+    steps.mark("tree", dirs=len(dirs), pinned=pinned, mkdir_pin_s=mkdir_s,
+               create=create_t, list_s=list_s, close_s=close_s,
+               read=sv_traffic(res, sum(map(len, files.values()))))
+
+
+async def md_caps(steps: MdSteps, st: dict, rng, sz: dict) -> None:
+    """Step ``caps``: the cached client writes ``caps_files`` files (its
+    write caps held, its data in the ObjectCacher), then the other reads
+    them all at MD_QD while it holds them. Each read recalls a cap; the
+    first recall flushes the holder's whole cache, and a recall that
+    waits past the MDS's 2 s revoke timeout evicts the live holder: the
+    MDS drops its buffered size and the reader sees the file as short as
+    the MDS knew it (ROADMAP §3). Recorded, not hidden: every read must be
+    the written bytes or a prefix of them, and a short read only where a
+    release came late."""
+    a, b = st["a"], st["b"]
+    await b.mkdir("/live")
+    files = {f"/live/f{i:04d}": rng.bytes(sz["file_bytes"])
+             for i in range(sz["caps_files"])}
+    for p, data in files.items():
+        await b.create(p)
+        await b.write(p, data)
+    late0 = steps.caps["late_releases"]
+
+    async def read(p):
+        return await a.read(p)
+    res = await sv_run([lambda p=p: read(p) for p in files], MD_QD)
+    got = dict(zip(files, res["results"]))
+    short = [p for p, g in got.items() if g != files[p]]
+    check(all(files[p].startswith(got[p]) for p in short),
+          "mds caps: a read returned bytes that were never written")
+    late = steps.caps["late_releases"] - late0
+    check(not short or late > 0,
+          f"mds caps: {len(short)} short reads with no late release")
+    await b.close()
+    await b.connect()
+    steps.mark("caps", files=len(files), qd=MD_QD,
+               revoke_timeout_s=st["ranks"][0].revoke_timeout,
+               reads_exact=len(files) - len(short), reads_short=len(short),
+               short_lengths=sorted({len(got[p]) for p in short}),
+               read=sv_traffic(res, sum(map(len, got.values()))))
+
+
+async def md_race(steps: MdSteps, st: dict, sz: dict) -> None:
+    """Step ``race``: both clients create files at once, one in a rank-0
+    directory and the other in a rank-1 one. The ranks share one inode
+    counter (``fsmeta.nextino``) that each reads and then writes back, so
+    two creates at once can take one inode number (ROADMAP §3 item 12):
+    the two files then share their data objects. Recorded, not hidden:
+    the step counts the inode numbers handed out twice."""
+    a, b = st["a"], st["b"]
+    dirs = {"/race0": (a, 0), "/race1": (b, 1)}
+    for d, (cl, rank) in dirs.items():
+        await a.mkdir(d)
+        if rank:
+            await a.set_subtree_pin(d, rank)
+        await cl.listdir(d)  # the client learns the directory's rank
+    n = sz["race_files"]
+    paths = [(cl, f"{d}/f{i:04d}") for i in range(n)
+             for d, (cl, _) in dirs.items()]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(cl.create(p) for cl, p in paths))
+    create_s = time.perf_counter() - t0
+    inos = [(await a.stat(p))["ino"] for _, p in paths]
+    twice = len(inos) - len(set(inos))
+    steps.mark("race", creates=len(paths), create_s=create_s,
+               inos_handed_out_twice=twice)
+
+
+async def md_data(steps: MdSteps, st: dict, rng, sz: dict) -> None:
+    """Step ``data``: both clients write at once, each file's writes in
+    order; then everything read back at MD_QD."""
+    a, b = st["a"], st["b"]
+    io, n = MD_IO_BYTES, sz["data_files"]
+    per = sz["data_bytes"] // n
+    await a.mkdir("/data")
+    models = {f"/data/file{i}": bytearray(rng.bytes(per)) for i in range(n)}
+    by = {p: (a, b)[i % 2] for i, p in enumerate(models)}
+    lat = []
+
+    async def write_file(p):
+        cl = by[p]
+        for off in range(0, per, io):
+            t = time.perf_counter()
+            await cl.write(p, bytes(models[p][off:off + io]), off)
+            lat.append(time.perf_counter() - t)
+        # data lands (b's cache flushed) and the size reaches the MDS
+        await cl._flush(cl._paths[p])
+    t0 = time.perf_counter()
+    await asyncio.gather(*(write_file(p) for p in models))
+    write = sv_traffic({"lat_s": lat, "wall_s": time.perf_counter() - t0},
+                       sz["data_bytes"])
+    for p in models:
+        size = (await a.stat(p))["size"]
+        check(size == per, f"mds data: {p} size {size}, wrote {per}")
+    res = await md_read_all(a, models, io)
+    sv_reads_equal(res, "mds data read")
+    st["models"] = models
+    steps.mark("data", files=n, writers_in_flight=n, write=write,
+               read_qd=MD_QD, read=sv_traffic(res, sz["data_bytes"]))
+
+
+async def md_overwrites(steps: MdSteps, st: dict, rng, sz: dict) -> None:
+    """Step ``overwrites``: aligned 4 KiB overwrites of one data file by
+    the client without a cache, MD_QD in flight; the other client reads
+    the file back."""
+    a, b = st["a"], st["b"]
+    p = "/data/file0"
+    model = st["models"][p]
+    offs = sv_blocks(rng, len(model), sz["overwrites"])
+    patches = [rng.bytes(SV_OVERWRITE_BYTES) for _ in offs]
+    for off, patch in zip(offs, patches):
+        model[off:off + SV_OVERWRITE_BYTES] = patch
+    res = await sv_run([lambda o=o, q=q: a.write(p, q, o)
+                        for o, q in zip(offs, patches)], MD_QD)
+    overwrite = sv_traffic(res, len(offs) * SV_OVERWRITE_BYTES)
+    res = await md_read_all(b, {p: model}, MD_IO_BYTES)
+    sv_reads_equal(res, "mds overwrites read-back")
+    steps.mark("overwrites", depth=MD_QD,
+               depth_why="aligned overwrites inside the file: none moves "
+                         "its size, so FSClient.write under the held write "
+                         "cap is client-side only",
+               overwrite=overwrite, read=sv_traffic(res, len(model)))
+
+
+async def md_rename(steps: MdSteps, st: dict, sz: dict) -> None:
+    """Step ``rename``: files of a rank-0 directory renamed into a
+    directory pinned to rank 1 and back (the peer-request path)."""
+    a, b, files = st["a"], st["b"], st["files"]
+    src, dst = st["dirs"][0], st["pinned"][-1]
+    names = sorted(p.rsplit("/", 1)[1] for p in files
+                   if p.startswith(src + "/"))
+    moved = names[:sz["renames"] // 2]
+    lat = []
+
+    async def rename(frm, to):
+        t = time.perf_counter()
+        await a.rename(frm, to)
+        lat.append(time.perf_counter() - t)
+    t0 = time.perf_counter()
+    for n in moved:
+        await rename(f"{src}/{n}", f"{dst}/moved-{n}")
+    there = set(await b.listdir(dst))
+    check(all(f"moved-{n}" in there for n in moved),
+          "mds rename: rank 1's directory lacks the moved files")
+    check(await b.read(f"{dst}/moved-{moved[0]}")
+          == files[f"{src}/{moved[0]}"], "mds rename: moved file's bytes")
+    for n in moved:
+        await rename(f"{dst}/moved-{n}", f"{src}/{n}")
+    wall = time.perf_counter() - t0
+    check(sorted(await b.listdir(src)) == names,
+          "mds rename: the round trip changed the listing")
+    steps.mark("rename", renames=len(lat), from_rank=0, to_rank=1,
+               **sv_traffic({"lat_s": lat, "wall_s": wall}, 0))
+
+
+async def md_snap(steps: MdSteps, st: dict, rng) -> None:
+    """Step ``snap``: a snapshot of a directory, a mutation (an overwrite
+    by the other client and a new file), the snapshot read back."""
+    a, b, files = st["a"], st["b"], st["files"]
+    d = st["dirs"][1]
+    before = sorted(await a.listdir(d))
+    t0 = time.perf_counter()
+    snapid = await a.mksnap(d, "mds-phase")
+    mksnap_s = time.perf_counter() - t0
+    victim = f"{d}/{before[0]}"
+    old = files[victim]
+    patch = rng.bytes(4096)
+    await b.write(victim, patch, 0)
+    files[victim] = patch + old[4096:]
+    await a.create(f"{d}/after-snap")
+    await a.write(f"{d}/after-snap", b"after the snapshot")
+    check(sorted(await a.snap_listdir(d, "mds-phase")) == before,
+          "mds snap: the snapshot's listing moved")
+    t0 = time.perf_counter()
+    res = await sv_run([lambda n=n: a.snap_read(d, "mds-phase", n)
+                        for n in before], MD_QD)
+    snap_read_s = time.perf_counter() - t0
+    want = [old if f"{d}/{n}" == victim else files[f"{d}/{n}"]
+            for n in before]
+    check(res["results"] == want, "mds snap: snapshot bytes differ")
+    check(await a.read(victim) == files[victim], "mds snap: live bytes")
+    steps.mark("snap", snapid=snapid, mksnap_s=mksnap_s,
+               snap_files=len(before), snap_read_s=snap_read_s)
+
+
+async def md_quota(steps: MdSteps, st: dict) -> None:
+    """Step ``quota``: a bytes quota refuses the write past it."""
+    from ceph_tpu_torch.services.fs import QuotaExceeded
+
+    a = st["a"]
+    await a.mkdir("/quota")
+    await a.set_quota("/quota", max_bytes=MD_QUOTA_BYTES)
+    await a.write("/quota/half", b"q" * (MD_QUOTA_BYTES // 2))
+    await a._flush(a._paths["/quota/half"])
+    a._quota_cache.clear()
+    refused = None
+    try:
+        await a.write("/quota/over", b"y" * MD_QUOTA_BYTES)
+    except QuotaExceeded as e:
+        refused = str(e)
+    check(refused is not None, "mds quota: the write past it went through")
+    st_ = await a.dir_stat("/quota")
+    check(st_["rbytes"] == MD_QUOTA_BYTES // 2,
+          f"mds quota: rbytes {st_['rbytes']}")
+    steps.mark("quota", max_bytes=MD_QUOTA_BYTES, refused=refused,
+               dir_stat=st_)
+
+
+async def md_crash(steps: MdSteps, st: dict, c) -> None:
+    """Step ``crash``: rank 0 dies between the two dirfrag updates of a
+    rename (``_crash_mid_rename``); a new rank 0 replays its journal and
+    the rename completes."""
+    from ceph_tpu_torch.services.mds import MDSLite
+
+    a, b, files = st["a"], st["b"], st["files"]
+    for cl in (a, b):  # caps and cached data durable before the crash
+        await cl.close()
+        await cl.connect()
+    d0, d1 = st["dirs"][0], st["dirs"][2]
+    src = sorted(p for p in files if p.startswith(d0 + "/"))[-1]
+    dst = f"{d1}/crashed-{src.rsplit('/', 1)[1]}"
+    st["ranks"][0]._crash_mid_rename = True
+    failed = None
+    try:
+        await a.rename(src, dst)
+    except Exception as e:  # the daemon died mid-op
+        failed = type(e).__name__
+    check(failed is not None, "mds crash: the rename did not fail")
+    await st["ranks"][0].stop()
+    fresh = MDSLite(c.bus, st["ranks"][0].client, CL_REP_POOL, name="mds.0",
+                    data_pool=CL_EC_POOL)
+    t0 = time.perf_counter()
+    await fresh.start()  # journal replay completes the rename
+    replay_s = time.perf_counter() - t0
+    st["ranks"][0] = fresh
+    name = src.rsplit("/", 1)[1]
+    check(name not in await b.listdir(d0), "mds crash: source still there")
+    check(dst.rsplit("/", 1)[1] in await b.listdir(d1),
+          "mds crash: destination missing after replay")
+    check(await b.read(dst) == files[src], "mds crash: renamed file bytes")
+    files[dst] = files.pop(src)
+    steps.mark("crash", client_error=failed, replay_s=replay_s,
+               renamed=[src, dst])
+
+
+async def md_degraded(steps: MdSteps, st: dict, c) -> None:
+    """Step ``degraded``: OSD MD_KILLED (it holds EC shards) down, the
+    data read back exactly (K1 rebuilds)."""
+    from ceph_tpu_torch.cluster.pg import META_OID
+
+    store = c.stores[MD_KILLED]
+    held = sum(1 for cid in store.list_collections()
+               if cid.startswith(f"{CL_EC_POOL}.")
+               for oid in store.list_objects(cid) if oid != META_OID)
+    check(held > 0, f"mds: OSD {MD_KILLED} holds no EC shard")
+    await c.kill_osd(MD_KILLED)
+    await c.wait_down(MD_KILLED, timeout=30)
+    models = st["models"]
+    res = await md_read_all(st["a"], models, MD_IO_BYTES)
+    sv_reads_equal(res, "mds degraded read")
+    su = next(o for o in c.osds if o is not None).sinfo_for(
+        c.mon.osdmap.pools[CL_EC_POOL]).su
+    shards, cells = cl_hinfo_check(c.stores, su, "mds")
+    steps.mark("degraded", killed=MD_KILLED, shards_held=held,
+               read=sv_traffic(res, sum(map(len, models.values()))),
+               shards_crc_checked=shards, cells_crc_checked=cells)
+
+
+async def md_drive(steps: MdSteps, device, rng, sz: dict) -> None:
+    """Phase mds's in-process arm on one event loop."""
+    from ceph_tpu_torch.cluster import RadosClient, TestCluster
+    from ceph_tpu_torch.placement.osdmap import Pool
+    from ceph_tpu_torch.services.fs import FSLite
+    from ceph_tpu_torch.services.mds import FSClient, MDSLite
+
+    c = TestCluster(n_osds=CL_OSDS, out_interval=CL_OUT_INTERVAL,
+                    osd_conf={"osd_ec_cold_shape_bytes":
+                              CL_COLD_SHAPE_BYTES}, device=device)
+    steps.cluster = c
+    await c.start()
+    try:
+        steps.start()
+        c.client.op_timeout = CL_OP_TIMEOUT_S
+        await c.client.create_pool(Pool(
+            id=CL_REP_POOL, name="cephfs_metadata", size=3, min_size=2,
+            pg_num=CL_PG_NUM, crush_rule=0))
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="cephfs_data", size=11, min_size=8,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await c.wait_active(60)
+        warmed = await c.client._placement.prewarm(
+            c.client.osdmap, [CL_REP_POOL, CL_EC_POOL])
+        check(warmed == 2 * CL_PG_NUM, f"mds prewarm {warmed}")
+        await FSLite(c.client, CL_REP_POOL, data_pool=CL_EC_POOL).mkfs()
+        # each rank with a RADOS client of its own, as an MDS daemon has
+        mds_clients = [RadosClient(c.bus, name=f"client.mds{r}",
+                                   op_timeout=CL_OP_TIMEOUT_S,
+                                   device=c.device) for r in range(2)]
+        ranks = []
+        for r, cl in enumerate(mds_clients):
+            await cl.connect()
+            ranks.append(MDSLite(c.bus, cl, CL_REP_POOL, name=f"mds.{r}",
+                                 data_pool=CL_EC_POOL))
+            await ranks[-1].start()
+        a = FSClient(c.bus, c.client, CL_EC_POOL, name="fsclient.a",
+                     timeout=CL_OP_TIMEOUT_S)
+        b = FSClient(c.bus, c.client, CL_EC_POOL, name="fsclient.b",
+                     timeout=CL_OP_TIMEOUT_S, cache=True)
+        await a.connect()
+        await b.connect()
+        steps.mark("setup", prewarmed_pgids=warmed, ranks=len(ranks),
+                   clients={"fsclient.a": "direct",
+                            "fsclient.b": "ObjectCacher"})
+        st = {"a": a, "b": b, "ranks": ranks}
+        await md_tree(steps, st, rng, sz)
+        await md_caps(steps, st, rng, sz)
+        await md_race(steps, st, sz)
+        await md_data(steps, st, rng, sz)
+        await md_overwrites(steps, st, rng, sz)
+        await md_rename(steps, st, sz)
+        await md_snap(steps, st, rng)
+        await md_quota(steps, st)
+        await md_crash(steps, st, c)
+        await md_degraded(steps, st, c)
+        await a.close()
+        await b.close()
+        for m in st["ranks"]:
+            await m.stop()
+        for cl in mds_clients:
+            await cl.close()
+    finally:
+        await c.stop()
+        steps.cluster = None
+
+
+def mds_phase(card: str, rng, device=None, **sizes) -> dict:
+    """Phase mds's in-process arm (see the MD_* constants): a TestCluster
+    on ``device`` (the card when None, as a user leaves it), every count
+    set to 0 at its start; steps ``tree``, ``caps``, ``race``, ``data``,
+    ``overwrites``, ``rename``, ``snap``, ``quota``, ``crash`` and
+    ``degraded``, a line
+    each (``sizes`` overrides MD_SIZES). Every read must equal the host's
+    copy; K1 and K2 must launch in ``tree``, ``data`` and ``overwrites``,
+    K1 in ``degraded``; no step may call the rs byte API, decode on the
+    host engine or fail a placement lookup -> {"lines", "launches",
+    "drive_s"}."""
+    sz = {**MD_SIZES, **sizes}
+    emit({"phase": "mds", "arm": "in_process", "cuts": {
+        k: {"from": v, "to": sz[k]} for k, v in MD_FULL.items()
+        if sz[k] != v}, "budget_s": MD_BUDGET_S, "card": card})
+    steps = MdSteps(card)
+    try:
+        t0 = time.perf_counter()
+        asyncio.run(asyncio.wait_for(md_drive(steps, device, rng, sz),
+                                     MD_TIMEOUT_S))
+        drive_s = time.perf_counter() - t0
+    finally:
+        steps.close()
+    for step, line in steps.lines.items():
+        check(line["rs_byte_api"] == {"encode_chunks": 0,
+                                      "decode_chunks": 0},
+              f"mds {step}: rs byte API {line['rs_byte_api']}")
+        check(line["decode_host_rounds"] == 0,
+              f"mds {step}: {line['decode_host_rounds']} decode rounds on "
+              "the host engine")
+    cl_lookups_check(steps, "mds")
+    for step, keys in (("tree", ("gf_matmul", "crc32c")),
+                       ("data", ("gf_matmul", "crc32c")),
+                       ("overwrites", ("gf_matmul", "crc32c")),
+                       ("degraded", ("gf_matmul",))):
+        for key in keys:
+            n = steps.lines[step]["launches"][key]
+            check(n > 0, f"mds {step} launched {key} {n} times")
+    check(steps.lines["degraded"]["decode_batches"] > 0,
+          "mds degraded: no decode batch")
+    launches = steps.totals()
+    evictions = sum(line["caps"]["late_releases"]
+                    for line in steps.lines.values())
+    emit({"phase": "mds_launches", "arm": "in_process", **launches,
+          "drive_s": drive_s, "over_budget": drive_s > MD_BUDGET_S,
+          "cap_revokes": sum(line["caps"]["revokes"]
+                             for line in steps.lines.values()),
+          "live_clients_evicted": evictions})
+    return {"lines": steps.lines, "launches": launches, "drive_s": drive_s}
+
+
+def mem_available() -> dict:
+    """MemTotal and MemAvailable of the host (/proc/meminfo), bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[f"{key}_bytes"] = int(value.split()[0]) * 1024
+    return out
+
+
+def pr_mem_of(pid: int) -> dict:
+    """A live process's VmRSS, RssAnon, RssFile and RssShmem
+    (/proc/<pid>/status) and Pss (/proc/<pid>/smaps_rollup, else the sum
+    over /proc/<pid>/smaps; left out where neither can be read), bytes;
+    {} once it is gone."""
+    out = {}
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                key = line.split(":", 1)[0]
+                if key in ("VmRSS", "RssAnon", "RssFile", "RssShmem"):
+                    out[key] = int(line.split()[1]) * 1024
+    except OSError:
+        return {}
+    for name in ("smaps_rollup", "smaps"):
+        try:
+            with open(f"/proc/{pid}/{name}") as f:
+                pss = [int(line.split()[1]) * 1024 for line in f
+                       if line.startswith("Pss:")]
+        except OSError:
+            continue
+        if pss:
+            out["Pss"] = sum(pss)
+            break
+    return out
+
+
+def pr_memory(c) -> dict:
+    """Memory by role over the live daemons of ``c``: each field's
+    median, max and sum (bytes), and the host's MemAvailable."""
+    by_role: dict[str, dict[str, list]] = {}
+    for name, proc in c.procs.items():
+        if proc is None or proc.poll() is not None:
+            continue
+        role = by_role.setdefault(name.split(".")[0], {})
+        for key, v in pr_mem_of(proc.pid).items():
+            role.setdefault(key, []).append(v)
+    daemons = sum(1 for p in c.procs.values()
+                  if p is not None and p.poll() is None)
+    return {"by_role": {role: {key: {"median": statistics.median(v),
+                                     "max": max(v), "sum": sum(v),
+                                     "n": len(v)}
+                               for key, v in fields.items()}
+                        for role, fields in by_role.items()},
+            "daemons": daemons, **mem_available()}
+
+
+def mp_fits(mem: dict, before: dict, extra: int = 2) -> dict:
+    """Whether ``extra`` more daemons fit beside those ``mem``
+    (``pr_memory``) measured, leaving MP_FREE_SHARE of the host's memory
+    free, against MemAvailable before the cluster started. A daemon's
+    size: the host's MemAvailable drop since the start over the live
+    daemons. VmRSS counts the shared torch and CUDA libraries once in
+    every process, so a sum of it overstates; on the H100's host /proc
+    gives a Pss equal to VmRSS, so it splits nothing either."""
+    used = before["MemAvailable_bytes"] - mem["MemAvailable_bytes"]
+    each = used / max(1, mem["daemons"])
+    need = used + extra * each
+    room = before["MemAvailable_bytes"] - MP_FREE_SHARE * before[
+        "MemTotal_bytes"]
+    return {"daemons_bytes": used, "daemon_bytes": each, "need_bytes": need,
+            "room_bytes": room, "fits": need <= room}
+
+
+async def mp_arm(c, card: str, rng, cluster: str) -> dict:
+    """Phase mds's process arm on the ProcCluster ``c`` (its replicated
+    and EC pools made): two MDS daemon processes, two FSClients in the
+    launcher, the schedule of the MP_* constants. A line per step ->
+    {"lines", "launches", "mds_launches"}."""
+    from ceph_tpu_torch.services.fs import FSLite
+    from ceph_tpu_torch.services.mds import FSClient
+    from ceph_tpu_torch.tools import ceph_daemon, exporter
+
+    steps = PrSteps(c, card, cluster, phase="mds")
+    await steps.start()
+    await FSLite(c.client, CL_REP_POOL, data_pool=CL_EC_POOL).mkfs()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(c.start_mds(r, pool=CL_REP_POOL,
+                                       data_pool=CL_EC_POOL)
+                           for r in range(2)))
+    start_s = time.perf_counter() - t0
+    startup = {n: c.startup()[n] for n in ("mds.0", "mds.1")}
+    fs = FSClient(c.bus, c.client, CL_EC_POOL, name="fsclient.p0",
+                  timeout=MP_CLIENT_TIMEOUT_S)
+    fs2 = FSClient(c.bus, c.client, CL_EC_POOL, name="fsclient.p1",
+                   timeout=MP_CLIENT_TIMEOUT_S)
+    await fs.connect()
+    await fs2.connect()
+    await fs.mkdir("/proj")
+    await fs.mkdir("/pin")
+    await fs.set_subtree_pin("/pin", 1)
+    mem = pr_memory(c)
+    await steps.mark("mds_start", arm="process", start_s=start_s,
+                     startup=startup, memory=mem["by_role"].get("mds"),
+                     MemAvailable_bytes=mem["MemAvailable_bytes"])
+    files = {f"{('/proj', '/pin')[i % 2]}/f{i:03d}": rng.bytes(MP_FILE_BYTES)
+             for i in range(MP_FILES)}
+    by = {p: (fs, fs2)[i % 2] for i, p in enumerate(files)}
+    # the creates one at a time: the two ranks share one inode counter
+    # that each reads and writes back (ROADMAP §3 item 12; the in-process
+    # arm's step race records it), then the data MP_QD at a time
+    for p in files:
+        await by[p].create(p)
+    res = await sv_run([lambda p=p: by[p].write(p, files[p])
+                        for p in files], MP_QD)
+    for cl in (fs, fs2):  # the sizes reach the MDSs
+        for ino in list(cl.wcaps):
+            await cl._flush(ino)
+    nbytes = MP_FILES * MP_FILE_BYTES
+    await steps.mark("write", arm="process", qd=MP_QD,
+                     **sv_traffic(res, nbytes))
+
+    async def read_other(p):
+        other = fs2 if by[p] is fs else fs
+        got = await other.read(p)
+        return got == files[p] or (p, len(got), got == files[p][:len(got)])
+    res = await sv_run([lambda p=p: read_other(p) for p in files], MP_QD)
+    bad = [r for r in res["results"] if r is not True]
+    check(not bad, f"mds process arm read: {len(bad)} of {len(files)} "
+                   f"reads differ (path, bytes, a prefix): {bad[:4]}")
+    await steps.mark("read", arm="process", **sv_traffic(res, nbytes))
+    # kill -9 of rank 0 between two ops of the stream, its revival and
+    # the namespace back after the journal's replay
+    listing = {d: sorted(await fs.listdir(d)) for d in ("/proj", "/pin")}
+    c.kill_mds(0)
+    t0 = time.perf_counter()
+    down = None
+    try:
+        await asyncio.wait_for(fs.mkdir("/proj/lost"), MP_DOWN_PROBE_S)
+    except (OSError, asyncio.TimeoutError) as e:
+        down = type(e).__name__
+    check(down is not None, "mds process arm: rank 0 answered after kill")
+    t1 = time.perf_counter()
+    await c.revive_mds(0)
+    revive_s = time.perf_counter() - t1
+    again = {d: sorted(await fs.listdir(d)) for d in ("/proj", "/pin")}
+    check(again == listing, "mds process arm: namespace after the revival")
+    back_s = time.perf_counter() - t0
+    sample = sorted(files)[:8]
+    res = await sv_run([lambda p=p: fs.read(p) for p in sample], MP_QD)
+    check(res["results"] == [files[p] for p in sample],
+          "mds process arm: reads after the revival")
+    await fs.create("/proj/after-revival")
+    await fs.write("/proj/after-revival", b"after-revival")
+    check(await fs2.read("/proj/after-revival") == b"after-revival",
+          "mds process arm: write after the revival")
+    await steps.mark("kill9_revive", arm="process", probe_error=down,
+                     revive_s=revive_s, namespace_back_s=back_s,
+                     startup=c.startup()["mds.0"])
+    # cross-subtree renames over the wire: mds.0 -> mds.1 and back
+    lat = []
+    for src, dst, cl in (("/proj/f000", "/pin/crossed", fs),
+                         ("/pin/crossed", "/proj/back", fs2)):
+        t = time.perf_counter()
+        await cl.rename(src, dst)
+        lat.append(time.perf_counter() - t)
+        other = fs2 if cl is fs else fs
+        check(await other.read(dst) == files["/proj/f000"],
+              f"mds process arm: {dst} after the rename")
+    check("f000" not in await fs2.listdir("/proj")
+          and "crossed" not in await fs.listdir("/pin"),
+          "mds process arm: rename left its source")
+    launches = {n: await c.asok(n, "kernel launches")
+                for n in ("mds.0", "mds.1")}
+    # the CLIs against the live daemons' admin sockets
+    asok = os.path.join(c.data_dir, "mds.1.asok")
+    rc, text = await asyncio.to_thread(tl_run, ceph_daemon,
+                                       [asok, "kernel", "launches"])
+    check(rc == 0 and json.loads(text)["pid"] == c.procs["mds.1"].pid,
+          f"ceph_daemon against mds.1: rc {rc}, {text[:200]}")
+    sock_dir = os.path.join(c.data_dir, "scrape")
+    os.makedirs(sock_dir, exist_ok=True)
+    for i in range(c.n_osds):
+        os.symlink(os.path.join(c.data_dir, f"osd.{i}.asok"),
+                   os.path.join(sock_dir, f"osd.{i}.sock"))
+    text = await exporter.scrape(sock_dir)
+    up = sum(f'ceph_tpu_daemon_up{{ceph_daemon="osd.{i}"}} 1' in text
+             for i in range(c.n_osds))
+    check(up == c.n_osds and "ceph_tpu_op" in text,
+          f"exporter: {up} of {c.n_osds} OSDs scraped up")
+    await steps.mark("rename_clis", arm="process", renames=len(lat),
+                     rename_ms=[x * 1e3 for x in lat],
+                     mds_launches={n: v["launches"]
+                                   for n, v in launches.items()},
+                     ceph_daemon_rc=rc, exporter_lines=text.count("\n"),
+                     exporter_osds_up=up)
+    await fs.close()
+    await fs2.close()
+    mds_launches = {n: v["launches"] for n, v in launches.items()}
+    totals = steps.totals()
+    for n, kl in mds_launches.items():
+        for k, v in kl.items():
+            totals[k] += v
+    return {"lines": steps.lines, "launches": totals,
+            "mds_launches": mds_launches}
+
+
+async def mp_cluster(data_dir: str, device, card: str, rng) -> dict:
+    """The process arm's own ProcCluster: 1 mon, MP_OSDS OSDs over TCP,
+    phase proc's pools, then ``mp_arm``."""
+    from ceph_tpu_torch.cluster.procstart import ProcCluster
+    from ceph_tpu_torch.placement.osdmap import Pool
+
+    c = ProcCluster(data_dir, n_osds=MP_OSDS, n_mons=1, backend="tcp",
+                    spawn_timeout=PR_SPAWN_TIMEOUT_S,
+                    osd_conf={"osd_ec_cold_shape_bytes":
+                              CL_COLD_SHAPE_BYTES}, device=device)
+    try:
+        t0 = time.perf_counter()
+        await c.start()
+        start_s = time.perf_counter() - t0
+        c.client.op_timeout = PR_OP_TIMEOUT_S
+        await c.client.create_pool(Pool(
+            id=CL_REP_POOL, name="cephfs_metadata", size=3, min_size=2,
+            pg_num=CL_PG_NUM, crush_rule=0))
+        k, m = int(CL_EC_PROFILE["k"]), int(CL_EC_PROFILE["m"])
+        await c.client.create_pool(Pool(
+            id=CL_EC_POOL, name="cephfs_data", size=k + m, min_size=k,
+            pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+            ec_profile=dict(CL_EC_PROFILE)))
+        await pr_active(c, PR_CLEAN_TIMEOUT_S)
+        emit({"phase": "mds", "arm": "process", "step": "cluster",
+              "osds": MP_OSDS, "mons": 1, "start_s": start_s,
+              "memory": pr_memory(c), "card": card})
+        return await mp_arm(c, card, rng, "tcp")
+    finally:
+        await c.stop()
+
+
+def mp_check(mp: dict) -> None:
+    """The process arm's lines: no EC batch failed and no decode ran on
+    the host engine in the OSD daemons."""
+    for step, line in mp["lines"].items():
+        for key in ("ec_decode_cold_host", "ec_batch_failures"):
+            check(line[key] == 0, f"mds process arm {step}: {key} "
+                                  f"{line[key]}")
+    emit({"phase": "mds_launches", "arm": "process", **mp["launches"],
+          "by_mds": mp["mds_launches"]})
+
+
+def mds_proc_phase(card: str, rng, device=None) -> dict:
+    """Phase mds's process arm on a ProcCluster of its own (``mp_cluster``)
+    -> ``mp_arm``'s result."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mds-")
+    try:
+        return asyncio.run(mp_cluster(root, device, card, rng))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: Phase tools: the operator CLIs (``ceph_tpu_torch.tools``), each through
+#: its ``main(argv)`` in this process, the clusters they build on the card
+#: (no ``--device``, as an operator leaves it). ``crushtool --test
+#: --device`` on config 5's 1,000 OSDs (placement phase's 50 hosts x 20,
+#: its replicated and EC 8+3 rules) at TL_CRUSH_X inputs;
+#: ``osdmaptool --test-map-pgs`` on a TL_MAP_OSDS-OSD map with phase
+#: cluster's two pools; ``rados bench`` at 4 MiB, ``-t`` TL_BENCH_T,
+#: TL_BENCH_S s of writes then ``seq`` on an EC 8+3 pool of CL_OSDS OSDs on
+#: BlueStoreLite; ``rbd`` create / import / export / snap / clone of a
+#: TL_RBD_BYTES image; ``objectstore_tool`` export and import of one PG
+#: (tests/test_tools.py's surgery); ``dencoder`` over every registered
+#: message type; ``ceph status``, ``osd tree`` and ``osd pool ls``; and
+#: ``swarm`` at its own defaults (2,000 clients, 8 s, 10 OSDs, 1,000,000
+#: objects, Zipf 1.1).
+TL_CRUSH_X, TL_CRUSH_HEAD = 1 << 20, 65_536
+TL_MAP_OSDS = 12
+TL_BENCH_S, TL_BENCH_T, TL_BENCH_BYTES = 5, 16, 4 << 20
+TL_BENCH_DEV_MIB = 1024
+TL_RBD_BYTES, TL_RBD_MUT_BYTES, TL_RBD_DEV_MIB = 256 << 20, 1 << 20, 1024
+TL_BUDGET_S = 60.0
+#: swarm's argv: its own defaults.
+TL_SWARM_ARGV: list[str] = []
+#: Free bytes the phase needs under TMPDIR (the BlueStoreLite block files
+#: of the bench's and rbd's clusters are sparse, their data is not).
+TL_FREE_BYTES = 8 << 30
+
+
+def tl_device(device) -> list[str]:
+    """The ``--device`` arguments of a CLI that builds a cluster: none
+    for the card (an operator leaves it out), else the device named."""
+    return [] if device is None else ["--device", str(device)]
+
+
+def tl_run(mod, argv: list[str]) -> tuple[int, str]:
+    """A CLI's ``main(argv)`` with its stdout captured (text and bytes, as
+    ``rbd export -`` writes) -> (rc, stdout)."""
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(list(argv))
+    out.flush()
+    return rc, buf.getvalue().decode()
+
+
+def tl_value(kind, rng):
+    """A seeded value of a message field ``kind`` (the kinds of
+    ``msg/messages.py`` and the cluster messages' own codecs, named by
+    their encoder)."""
+    from ceph_tpu_torch.cluster import messages as M
+
+    if isinstance(kind, tuple):
+        kind = kind[0].__name__
+    if kind in ("u8", "u16", "u32", "u64"):
+        return int(rng.integers(0, 1 << {"u8": 8, "u16": 16, "u32": 32,
+                                          "u64": 63}[kind]))
+    if kind in ("i32", "i64"):
+        bits = 31 if kind == "i32" else 62
+        return int(rng.integers(-(1 << bits), 1 << bits))
+    if kind == "str":
+        return "".join(rng.choice(list("abcdefgh.0123"),
+                                  int(rng.integers(12))))
+    if kind in ("bytes", "body", "_enc_lazy_txn", "_enc_lazy_entries"):
+        return rng.bytes(int(rng.integers(40)))
+    if kind.startswith("list:"):
+        return [tl_value(kind[5:], rng) for _ in range(rng.integers(4))]
+    if kind.startswith("map:"):
+        k_kind, v_kind = kind[4:].split(":", 1)
+        return {tl_value(k_kind, rng): tl_value(v_kind, rng)
+                for _ in range(rng.integers(4))}
+    if kind.startswith("pair:"):
+        a_kind, b_kind = kind[5:].split(":", 1)
+        return (tl_value(a_kind, rng), tl_value(b_kind, rng))
+    if kind == "_enc_osd_ops":
+        return [M.osd_op(tl_value("str", rng), tl_value("u64", rng),
+                         tl_value("i64", rng), tl_value("bytes", rng),
+                         tl_value("bytes", rng),
+                         tl_value("map:bytes:bytes", rng),
+                         tl_value("list:bytes", rng))
+                for _ in range(rng.integers(4))]
+    if kind == "_enc_outs":
+        return [(tl_value("i32", rng), tl_value("bytes", rng))
+                for _ in range(rng.integers(4))]
+    if kind == "_enc_scrub_map":
+        return {tl_value("bytes", rng): (tl_value("pair:u32:u64", rng),
+                                         tl_value("pair:u64:u32", rng))
+                for _ in range(rng.integers(4))}
+    if kind == "_enc_cfg_entries":
+        return [tuple(tl_value("str", rng) for _ in range(3))
+                for _ in range(rng.integers(4))]
+    if kind == "_enc_upmap_plan":
+        return [(tl_value("pair:i32:u32", rng),
+                 [tl_value("pair:i32:i32", rng)
+                  for _ in range(rng.integers(3))])
+                for _ in range(rng.integers(4))]
+    raise ValueError(f"no value for message field kind {kind!r}")
+
+
+class TlShapes:
+    """While open, the batch of every K1 encode (``rs.gf_matmul`` with the
+    m-row matrix: stripes, words a cell) the CLIs make, and the payload of
+    ``rados bench``'s first write with every bench read held against it
+    (the bench writes one random buffer to every object)."""
+
+    def __init__(self, m: int):
+        self.m = m
+        self.encodes: list[tuple[int, int]] = []
+        self.payload = None
+        self.reads = self.reads_equal = 0
+
+    def __enter__(self):
+        from ceph_tpu_torch.cluster.client import RadosClient
+        from ceph_tpu_torch.ops import rs
+
+        self._real = [(rs, "gf_matmul", rs.gf_matmul),
+                      (RadosClient, "write_full", RadosClient.write_full),
+                      (RadosClient, "read", RadosClient.read)]
+        gf, write_full, read = (r[2] for r in self._real)
+
+        def gf_matmul(mat, x, *a, **kw):
+            if len(mat) == self.m and x.dim() == 3:
+                self.encodes.append((int(x.shape[0]), int(x.shape[2])))
+            return gf(mat, x, *a, **kw)
+
+        async def bench_write(cl, pool, name, data, *a, **kw):
+            if self.payload is None and bytes(
+                    name if isinstance(name, bytes) else name.encode()
+            ).startswith(b"bench_"):
+                self.payload = bytes(data)
+            return await write_full(cl, pool, name, data, *a, **kw)
+
+        async def bench_read(cl, pool, name, *a, **kw):
+            data = await read(cl, pool, name, *a, **kw)
+            if bytes(name if isinstance(name, bytes)
+                     else name.encode()).startswith(b"bench_"):
+                self.reads += 1
+                self.reads_equal += bytes(data) == self.payload
+            return data
+        rs.gf_matmul = gf_matmul
+        RadosClient.write_full = bench_write
+        RadosClient.read = bench_read
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._real:
+            setattr(owner, name, fn)
+
+
+def tl_crush(tmp: str, device=None) -> tuple[dict, object]:
+    """``crushtool --test --device`` on config 5's 1,000 OSDs for both
+    rules -> (a line's fields, the map)."""
+    from ceph_tpu_torch.placement import crushmap as cm
+    from ceph_tpu_torch.placement import encoding as menc
+    from ceph_tpu_torch.tools import crushtool
+
+    tree = cm.build_hierarchy(osds_per_host=PL_PER_HOST, n_hosts=PL_HOSTS)
+    tree.add_rule(cm.replicated_rule(0, root=-1, failure_domain_type=1))
+    tree.add_rule(cm.ec_rule(1, root=-1, failure_domain_type=1))
+    path = os.path.join(tmp, "config5.crush")
+    with open(path, "wb") as f:
+        f.write(menc.encode_crushmap(tree))
+    out = {}
+    for name, (rule, numrep) in PL_RULES.items():
+        t0 = time.perf_counter()
+        rc, text = tl_run(crushtool, [
+            "--test", "-i", path, "--rule", str(rule), "--num-rep",
+            str(numrep), "--max-x", str(TL_CRUSH_X), "--show-bad-mappings",
+            "--device", *([] if device is None else [str(device)])])
+        head = text.splitlines()[0]
+        placed = int(head.split("placed ")[1].split(",")[0])
+        bad = int(head.split(", ")[-2].split()[0])
+        check(rc == (1 if bad else 0),
+              f"crushtool rule {rule}: rc {rc}, {head}")
+        out[name] = {"rule": rule, "num_rep": numrep, "rc": rc,
+                     "seconds": time.perf_counter() - t0, "placed": placed,
+                     "bad_mappings": bad,
+                     "max_deviation": float(head.rsplit(" ", 1)[1])}
+    return out, tree
+
+
+def tl_osdmap(tmp: str) -> dict:
+    """``osdmaptool --test-map-pgs`` and ``--print`` on a TL_MAP_OSDS-OSD
+    map with phase cluster's two pools, against the library's own
+    mapping of every PG."""
+    from ceph_tpu_torch.placement import crushmap as cm
+    from ceph_tpu_torch.placement import encoding as menc
+    from ceph_tpu_torch.placement.osdmap import OSDMap, Pool
+    from ceph_tpu_torch.tools import osdmaptool
+
+    crush = cm.build_flat(TL_MAP_OSDS)
+    crush.add_rule(cm.flat_firstn_rule(0))
+    crush.add_rule(cm.ec_rule(1, root=-1, failure_domain_type=0))
+    m = OSDMap(crush, TL_MAP_OSDS)
+    m.add_pool(Pool(id=CL_REP_POOL, name="rbd", size=3, min_size=2,
+                    pg_num=CL_PG_NUM, crush_rule=0))
+    m.add_pool(Pool(id=CL_EC_POOL, name="rbd_data", size=11, min_size=8,
+                    pg_num=CL_PG_NUM, crush_rule=1, type="erasure",
+                    ec_profile=dict(CL_EC_PROFILE)))
+    path = os.path.join(tmp, "osdmap.bin")
+    with open(path, "wb") as f:
+        f.write(menc.encode_osdmap(m))
+    out = {}
+    for pool in (CL_REP_POOL, CL_EC_POOL):
+        rc, text = tl_run(osdmaptool, ["--test-map-pgs", path, "--pool",
+                                       str(pool)])
+        counts = {}
+        for ps in range(CL_PG_NUM):
+            for o in m.pg_to_up_acting_osds((pool, ps))[0]:
+                if 0 <= o < TL_MAP_OSDS:
+                    counts[o] = counts.get(o, 0) + 1
+        got = {int(ln.split("\t")[0].strip().removeprefix("osd.")):
+               int(ln.split("\t")[1]) for ln in text.splitlines()
+               if ln.startswith("  osd.")}
+        check(rc == 0 and got == counts,
+              f"osdmaptool pool {pool}: rc {rc}, {got} against {counts}")
+        out[str(pool)] = {"mappings": sum(got.values()), "osds": len(got),
+                          "max_avg": text.splitlines()[1]}
+    rc, text = tl_run(osdmaptool, ["--print", path])
+    check(rc == 0 and f"max_osd {TL_MAP_OSDS}" in text,
+          f"osdmaptool --print: rc {rc}")
+    return out
+
+
+def tl_bench(tmp: str, shapes: TlShapes, device=None) -> dict:
+    """``rados bench`` write then seq on an EC 8+3 pool (durable, so seq
+    finds the objects)."""
+    from ceph_tpu_torch.tools import rados
+
+    base = ["--data-dir", os.path.join(tmp, "bench"), "--osds",
+            str(CL_OSDS), "--dev-size", str(TL_BENCH_DEV_MIB),
+            *tl_device(device)]
+    out = {}
+    for mode in ("write", "seq"):
+        t0 = time.perf_counter()
+        rc, text = tl_run(rados, base + [
+            "bench", "ecbench", str(TL_BENCH_S), mode, "-b",
+            str(TL_BENCH_BYTES), "-t", str(TL_BENCH_T), "--ec-k",
+            CL_EC_PROFILE["k"], "--ec-m", CL_EC_PROFILE["m"]])
+        res = json.loads(text.strip().splitlines()[-1])
+        check(rc == 0 and res["mode"] == mode and res["ops"] > 0,
+              f"rados bench {mode}: rc {rc}, {res}")
+        out[mode] = {**res, "command_s": time.perf_counter() - t0}
+    check(shapes.payload is not None and shapes.reads == out["seq"]["ops"]
+          and shapes.reads_equal == shapes.reads,
+          f"rados bench seq: {shapes.reads_equal} of {shapes.reads} reads "
+          f"equal the written object ({out['seq']['ops']} ops)")
+    out["seq"]["reads_equal"] = shapes.reads_equal
+    return out
+
+
+def tl_rbd(tmp: str, rng, device=None) -> dict:
+    """``rbd`` create, import, export, snap create, a second import, clone
+    and exports, each a cold start of a durable cluster; every export
+    byte-exact."""
+    from ceph_tpu_torch.tools import rbd
+
+    base = ["--data-dir", os.path.join(tmp, "rbd"), "--dev-size",
+            str(TL_RBD_DEV_MIB), *tl_device(device)]
+    img = rng.bytes(TL_RBD_BYTES)
+    mut = rng.bytes(TL_RBD_MUT_BYTES)
+    src, mutf, out = (os.path.join(tmp, n) for n in ("img", "mut", "out"))
+    with open(src, "wb") as f:
+        f.write(img)
+    with open(mutf, "wb") as f:
+        f.write(mut)
+    seconds = {}
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        rc, text = tl_run(rbd, base + list(argv))
+        check(rc == 0, f"rbd {' '.join(argv)}: rc {rc}")
+        key = " ".join(a for a in argv if not a.startswith(tmp))
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return text
+
+    def exported(spec):
+        run("export", spec, out)
+        with open(out, "rb") as f:
+            return f.read()
+    run("mkpool", "rbd")
+    run("create", "rbd/disk", "--size", f"{TL_RBD_BYTES >> 20}M")
+    run("import", "rbd/disk", src)
+    check(exported("rbd/disk") == img, "rbd export after import")
+    run("snap", "create", "rbd/disk@s1")
+    run("import", "rbd/disk", mutf)
+    run("clone", "rbd/disk@s1", "rbd/child")
+    check(exported("rbd/child") == img, "rbd export of the clone")
+    check(exported("rbd/disk") == mut + img[len(mut):],
+          "rbd export after the snapshot's overwrite")
+    check("child" in run("ls", "rbd"), "rbd ls")
+    for path in (src, mutf, out):
+        os.unlink(path)
+    return {"image_bytes": TL_RBD_BYTES, "exports_exact": 3,
+            "command_seconds": seconds}
+
+
+def tl_objectstore(tmp: str, rng, device=None) -> dict:
+    """tests/test_tools.py's PG surgery: a replicated object put with
+    ``rados``, its PG exported from one OSD's store, removed, imported
+    and read back with ``objectstore_tool``."""
+    from ceph_tpu_torch.tools import objectstore_tool as ost
+    from ceph_tpu_torch.tools import rados
+
+    d = os.path.join(tmp, "ost")
+    base = ["--data-dir", d, "--osds", "4", "--dev-size", "64",
+            *tl_device(device)]
+    payload = rng.bytes(9000)
+    src = os.path.join(tmp, "victim")
+    with open(src, "wb") as f:
+        f.write(payload)
+    check(tl_run(rados, base + ["mkpool", "rp", "3"])[0] == 0, "rados mkpool")
+    check(tl_run(rados, base + ["put", "rp", "victim", src])[0] == 0,
+          "rados put")
+    pgid = tb = None
+    for i in range(4):
+        tb = ["--data-path", os.path.join(d, f"osd.{i}"), "--type",
+              "bluestore"]
+        rows = [json.loads(ln) for ln in
+                tl_run(ost, tb + ["--op", "list"])[1].splitlines()]
+        hit = {cid for cid, oid in rows if oid == "victim"}
+        if hit:
+            pgid = hit.pop()
+            break
+    check(pgid is not None, "objectstore_tool: no OSD holds the object")
+    exp = os.path.join(tmp, "pg.export")
+    got = os.path.join(tmp, "got")
+    for argv in (["--op", "export", "--pgid", pgid, "--file", exp],
+                 ["--op", "remove", "--pgid", pgid],
+                 ["--op", "import", "--file", exp],
+                 ["--op", "get-bytes", "--pgid", pgid, "--obj", "victim",
+                  "--file", got]):
+        check(tl_run(ost, tb + argv)[0] == 0, f"objectstore_tool {argv}")
+    with open(got, "rb") as f:
+        check(f.read() == payload, "objectstore_tool: imported bytes")
+    return {"pgid": pgid, "export_bytes": os.path.getsize(exp),
+            "osd": tb[1].rsplit("/", 1)[1]}
+
+
+def tl_dencoder(tmp: str) -> dict:
+    """``dencoder list`` and ``selftest`` (the reference's selftest has no
+    sample for most types and exits 1 before any round trip: kept, and
+    recorded), then ``dencoder dump`` of every registered message type,
+    each a seeded instance's wire bytes decoded and encoded back
+    equal."""
+    from ceph_tpu_torch.msg.messages import _REGISTRY
+    from ceph_tpu_torch.tools import dencoder
+
+    rc, text = tl_run(dencoder, ["list"])
+    listed = [ln for ln in text.splitlines() if not ln.startswith("-")]
+    check(rc == 0 and len(listed) == len(_REGISTRY),
+          f"dencoder list: rc {rc}, {len(listed)} of {len(_REGISTRY)}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        self_rc, self_out = tl_run(dencoder, ["selftest"])
+    rng = np.random.default_rng(20261020)
+    dumped = 0
+    for t, cls in sorted(_REGISTRY.items()):
+        msg = cls(**{n: tl_value(k, rng) for n, k in cls.FIELDS})
+        blob = msg.encode()
+        path = os.path.join(tmp, f"{cls.__name__}.hex")
+        with open(path, "w") as f:
+            f.write(blob.hex())
+        rc, text = tl_run(dencoder, ["dump", cls.__name__, path])
+        check(rc == 0 and text.startswith(cls.__name__)
+              and cls.decode(blob).encode() == blob,
+              f"dencoder dump {cls.__name__}: rc {rc}")
+        dumped += 1
+    return {"types": len(_REGISTRY), "dumped_round_trip": dumped,
+            "selftest_rc": self_rc,
+            "selftest": (self_out + err.getvalue()).strip()[:300]}
+
+
+def tl_ceph(device=None) -> dict:
+    """``ceph status``, ``osd tree`` and ``osd pool ls`` (json), each on a
+    fresh CL_OSDS-OSD cluster."""
+    from ceph_tpu_torch.tools import ceph
+
+    out = {}
+    for words in (["status"], ["osd", "tree"], ["osd", "pool", "ls"]):
+        t0 = time.perf_counter()
+        rc, text = tl_run(ceph, ["--osds", str(CL_OSDS), "-f", "json",
+                                 *tl_device(device), *words])
+        check(rc == 0, f"ceph {' '.join(words)}: rc {rc}")
+        out[" ".join(words)] = {"seconds": time.perf_counter() - t0,
+                                "json": json.loads(text)}
+    osds = sorted(n["id"] for n in out["osd tree"]["json"] if n["id"] >= 0
+                  and n["status"] == "up")
+    check(osds == list(range(CL_OSDS)), f"ceph osd tree lists {osds} up")
+    status = out["status"]["json"]
+    check(status["osdmap"]["num_up_osds"] == CL_OSDS
+          and status["osdmap"]["num_in_osds"] == CL_OSDS,
+          f"ceph status: {status['osdmap']}")
+    check(out["osd pool ls"]["json"] == [],
+          f"ceph osd pool ls: {out['osd pool ls']['json']}")
+    return {"command_seconds": {k: v["seconds"] for k, v in out.items()},
+            "status": status, "tree_osds_up": len(osds),
+            "pools": out["osd pool ls"]["json"]}
+
+
+def tl_swarm(device=None) -> dict:
+    """``swarm`` at its own defaults; its JSON verdict's per-shape
+    percentiles and MiB/s, in-flight peak and resolver block."""
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.tools import swarm
+
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    t0 = time.perf_counter()
+    rc, text = tl_run(swarm, TL_SWARM_ARGV + tl_device(device))
+    seconds = time.perf_counter() - t0
+    if device is None:
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches - before[k.name]
+                for k in kernels.KERNELS}
+    res = json.loads(text)
+    check(rc == 0 and res["op_errors"] == {},
+          f"swarm: rc {rc}, op_errors {res['op_errors']}")
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(launches[key] > 0, f"swarm launched {key} {launches[key]} "
+                                 "times")
+    return {"seconds": seconds, "launches": launches,
+            **{k: res[k] for k in (
+                "clients", "duration_s", "n_osds", "namespace_objects",
+                "distinct_objects_touched", "ops", "ops_s", "mib_s",
+                "inflight_sustained", "inflight_peak", "op_errors",
+                "get_misses", "shapes", "placement",
+                "placement_prewarmed_pgids", "osd_counters")}}
+
+
+def tools_phase(card: str, rng, device=None) -> dict:
+    """Phase tools (see the TL_* constants): every count set to 0, then
+    each CLI through its ``main`` on the card, a line each; the tools'
+    launches read; then K4's rows at the crushtool inputs held against the
+    plain engine on a TL_CRUSH_HEAD head and timed at TL_CRUSH_X, and K1
+    and K2 timed at the bench's mean encode batch. ``device`` None runs
+    the CLIs on the card (no ``--device``, as an operator runs them) ->
+    {"lines", "launches", "timed", "seconds"}."""
+    import gc
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.ec import load_codec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools-")
+    free = shutil.disk_usage(tmp).free
+    check(free >= TL_FREE_BYTES, f"tools: {free} bytes free under "
+                                 f"{tmp}, the phase needs {TL_FREE_BYTES}")
+    lines = {}
+
+    def line(step, t0, **fields):
+        lines[step] = {"phase": "tools", "step": step,
+                       "seconds": time.perf_counter() - t0, **fields,
+                       "card": card}
+        emit(lines[step])
+    try:
+        if device is None:
+            torch.cuda.synchronize()
+        kernels.reset_counts()
+        t_phase = time.perf_counter()
+        with TlShapes(int(CL_EC_PROFILE["m"])) as shapes:
+            t0 = time.perf_counter()
+            crush_out, tree = tl_crush(tmp, device)
+            line("crushtool", t0, inputs=TL_CRUSH_X, rules=crush_out)
+            t0 = time.perf_counter()
+            line("osdmaptool", t0, osds=TL_MAP_OSDS, pools=tl_osdmap(tmp))
+            t0 = time.perf_counter()
+            bench = tl_bench(tmp, shapes, device)
+            bench_encodes = list(shapes.encodes)
+            line("rados_bench", t0, object_bytes=TL_BENCH_BYTES,
+                 concurrency=TL_BENCH_T, **bench)
+            shutil.rmtree(os.path.join(tmp, "bench"), ignore_errors=True)
+            t0 = time.perf_counter()
+            line("rbd", t0, **tl_rbd(tmp, rng, device))
+            shutil.rmtree(os.path.join(tmp, "rbd"), ignore_errors=True)
+            t0 = time.perf_counter()
+            line("objectstore_tool", t0, **tl_objectstore(tmp, rng, device))
+        t0 = time.perf_counter()
+        line("dencoder", t0, **tl_dencoder(tmp))
+        t0 = time.perf_counter()
+        line("ceph", t0, **tl_ceph(device))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line("swarm", t0, **tl_swarm(device))
+        if device is None:
+            torch.cuda.synchronize()
+        phase_s = time.perf_counter() - t_phase
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "tools_launches", **launches, "drive_s": phase_s,
+          "budget_s": TL_BUDGET_S, "over_budget": phase_s > TL_BUDGET_S})
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(launches[key] > 0, f"the tools launched {key} "
+                                 f"{launches[key]} times")
+    # after the counts: the kernels against their plain versions
+    t0 = time.perf_counter()
+    timed = tl_rule_times(tree, crush_out, device)
+    check(bench_encodes, "rados bench: no K1 encode")
+    b = round(statistics.fmean(s for s, _ in bench_encodes))
+    su = bench_encodes[0][1] * 4
+    codec = load_codec(CL_EC_PROFILE, device=device)
+    timed.update(batch_times(codec.device, rng, codec, b, su, "tools_bench_wb",
+                             ("write", "crc")))
+    return {"lines": lines, "launches": launches, "timed": timed,
+            "seconds": {"tools": phase_s,
+                        "tools_times": time.perf_counter() - t0}}
+
+
+def tl_rule_times(tree, cli: dict, device=None) -> dict:
+    """K4 at crushtool's inputs (0..TL_CRUSH_X-1, every OSD in) for each
+    rule: its rows' placed and bad-mapping counts against the CLI's
+    (``cli``, ``tl_crush``'s), its first TL_CRUSH_HEAD rows and draws
+    against the plain engine on the card, then timed at TL_CRUSH_X (CUDA
+    events, device ms, the bound from the draws the kernel counted)."""
+    from ceph_tpu_torch.device import resolve
+    from ceph_tpu_torch.placement import bulk
+
+    dev = resolve(device)
+    comp = bulk.CompiledMap(tree)
+    arrays = comp.arrays_on(dev)
+    rw_t = torch.full((PL_OSDS,), 0x10000, dtype=torch.int32, device=dev)
+    xs_t = torch.arange(TL_CRUSH_X, dtype=torch.int32, device=dev)
+    head = xs_t[:TL_CRUSH_HEAD]
+    timed = {}
+    for name, (rule, numrep) in PL_RULES.items():
+        rc = comp.compile_rule(rule, numrep)
+        kd = torch.zeros(1, dtype=torch.int64, device=dev)
+        pd = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = bulk.rule_rows(comp, rw_t, head, rc, numrep, kd)
+        want = bulk.rule_rows_plain(comp, rw_t, head, rc, numrep, pd)
+        err = max_abs_err(got, want)
+        check(err == 0 and int(kd.item()) == int(pd.item()),
+              f"crushtool {name}: K4 and the plain engine differ by {err} "
+              f"(draws {int(kd.item())} / {int(pd.item())})")
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        rows = bulk.rule_rows(comp, rw_t, xs_t, rc, numrep, count)
+        valid = (rows >= 0) & (rows < comp.max_devices)
+        placed = int(valid.sum().item())
+        bad = int((valid.sum(dim=1) < numrep).sum().item())
+        check((placed, bad) == (cli[name]["placed"],
+                                cli[name]["bad_mappings"]),
+              f"crushtool {name}: the CLI placed {cli[name]['placed']} "
+              f"with {cli[name]['bad_mappings']} bad mappings, the "
+              f"kernel's rows {placed} and {bad}")
+        del rows, valid
+
+        def kernel(rc=rc, numrep=numrep):
+            return bulk.rule_rows(comp, rw_t, xs_t, rc, numrep)
+        ms = time_ms(kernel, reps=5, warmup=1)
+        nbytes = (arrays[0].numel() * 8.0 + 8.0 * arrays[2].numel()
+                  + 4.0 * PL_OSDS + 4.0 * TL_CRUSH_X * (1 + numrep))
+        b_ms, b_by = rule_bound(int(count.item()), nbytes)
+        prof = profile_steps(kernel, reps=3, pads=BT_PADS)
+        key = f"crush_rule_tools_{name}"
+        timed[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "draws": int(count.item()), "device_ms":
+                      device_ms(prof), "max_abs_err": None,
+                      "head_max_abs_err": err,
+                      "head_inputs": TL_CRUSH_HEAD,
+                      "group": bulk.group_width(comp.widest(-1), TL_CRUSH_X,
+                                                bulk.card_lanes(dev))
+                      if dev.type == "cuda" else None}
+        emit({"phase": "time", "what": key, "inputs": TL_CRUSH_X,
+              **timed[key], "share_of_bound": b_ms / ms,
+              "profile": {k: prof[k] for k in PROFILE_CLOCK}})
+    return timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4861,6 +6334,9 @@ def main() -> int:
     emit({"phase": "card", "name": name, "count": count,
           "nvidia_smi": smi.splitlines()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
+
+    for what, (was, now) in SCRIPT_CUTS.items():
+        emit({"phase": "cut", "what": what, "from": was, "to": now})
 
     # ---- phase 2: build both kernels (one nvcc each, started together)
     secs = kernels.build_all()
@@ -5023,7 +6499,8 @@ def main() -> int:
     for key, (kernel, plain, (nbytes, ops)) in cases.items():
         err = max_abs_err(kernel(), plain())
         check(err == 0, f"{key}: kernel and plain differ by {err}")
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=PLAIN_REPS, warmup=1)
         b_ms, b_by = bound(nbytes, ops)
         prof = profile_steps(kernel)
         timed[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -5157,6 +6634,31 @@ def main() -> int:
                       cluster_lines=cl["lines"])
     timed.update(mesh["timed"])
     seconds["mesh"] = time.perf_counter() - t0
+
+    # ---- phase 16: the CephFS metadata daemon (services/mds.py), two
+    # ranks in one process on phase services' deployment, then as daemon
+    # processes (in phase proc's TCP cluster where they fit)
+    t0 = time.perf_counter()
+    md = mds_phase(smi.splitlines()[0], rng)
+    for key in ("gf_matmul", "crc32c", "crush_rule"):
+        check(md["launches"][key] > 0,
+              f"the mds phase launched {key} {md['launches'][key]} times")
+    seconds["mds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    md_timed = sv_batch_times(md["lines"], rng, table=MD_TIMED)
+    timed.update(md_timed)
+    seconds["mds_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = pr["mds"]
+    if mp is None:
+        mp = mds_proc_phase(smi.splitlines()[0], rng)
+        seconds["mds_proc"] = time.perf_counter() - t0
+    mp_check(mp)
+
+    # ---- phase 17: the operator CLIs (tools/), each through its main
+    tl = tools_phase(smi.splitlines()[0], rng)
+    timed.update(tl["timed"])
+    seconds.update(tl["seconds"])
     seconds["total"] = time.perf_counter() - start
     emit({"phase": "seconds", **seconds})
 
@@ -5180,14 +6682,18 @@ def main() -> int:
         paths["services"] = sv["launches"][name]
         paths["proc"] = pr["launches"][name]
         paths["mesh"] = mesh["launches"][name]
+        paths["mds"] = md["launches"][name] + mp["launches"][name]
+        paths["tools"] = tl["launches"][name]
         return paths
 
     # the batcher batches K1 and K2 were timed at on the cluster and
     # services paths
     ec_gf = [*(f"gf_{t}_{s}" for t in CL_TIMED for s in ("write", "decode")),
-             *(k for k in sv_timed if k.startswith("gf_"))]
+             *(k for k in (*sv_timed, *md_timed, *tl["timed"])
+               if k.startswith("gf_"))]
     ec_crc = [*(f"crc_{t}_write" for t in CL_TIMED),
-              *(k for k in sv_timed if k.startswith("crc_"))]
+              *(k for k in (*sv_timed, *md_timed, *tl["timed"])
+                if k.startswith("crc_"))]
     table = [
         {"name": "gf_matmul", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
@@ -5253,15 +6759,21 @@ def main() -> int:
              *(timed[f"crush_rule_{r}_{s}"]["max_abs_err"] for r in PL_RULES
                for s in ("65536", "64")),
              *(timed[f"crush_rule_{r}_full"]["head_max_abs_err"]
+               for r in PL_RULES),
+             *(timed[f"crush_rule_tools_{r}"]["head_max_abs_err"]
                for r in PL_RULES)),
          "library_ms": None,
          "launches_by_path": {"placement": pl["launches"]["crush_rule"],
                               "cluster": cl["launches"]["crush_rule"],
                               "services": sv["launches"]["crush_rule"],
                               "proc": pr["launches"]["crush_rule"],
-                              "mesh": mesh["launches"]["crush_rule"]},
+                              "mesh": mesh["launches"]["crush_rule"],
+                              "mds": md["launches"]["crush_rule"]
+                              + mp["launches"]["crush_rule"],
+                              "tools": tl["launches"]["crush_rule"]},
          "shapes": shapes(*(f"crush_rule_{r}_{s}" for r in PL_RULES
-                            for s in ("full", "65536", "64")))},
+                            for s in ("full", "65536", "64")),
+                          *(f"crush_rule_tools_{r}" for r in PL_RULES))},
         {"name": "gf2_xor", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf2_xor.cu",
          "replaces": "ceph_tpu/ops/gf2.py:62",

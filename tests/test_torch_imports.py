@@ -126,11 +126,13 @@ def test_process_tier_module_is_the_ports_own(module):
 def test_process_tier_with_no_device_and_no_card_raises(monkeypatch,
                                                         tmp_path):
     """A ProcCluster resolves its device when it is built, like a
-    TestCluster; the MDS role raises (its module is not ported), while
-    ``--proc`` runs; ``--chip-loss`` (ported with ``parallel/``) with no
+    TestCluster; the MDS role runs (``services/mds.py`` is ported: no
+    ``NotImplementedError`` is left in the daemon or the launcher), as
+    ``--proc`` does; ``--chip-loss`` (ported with ``parallel/``) with no
     device and no card raises, as the in-process arm does."""
-    import asyncio
+    import inspect
 
+    from ceph_tpu_torch.cluster import daemon, procstart
     from ceph_tpu_torch.cluster.procstart import ProcCluster
     from ceph_tpu_torch.tools import thrash
 
@@ -143,8 +145,8 @@ def test_process_tier_with_no_device_and_no_card_raises(monkeypatch,
         thrash.main(["--seed", "1", "--chip-loss"])
     c = ProcCluster(str(tmp_path / "b"), n_osds=3, device="cpu")
     assert c.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        asyncio.run(c.start_mds(0, pool=1))
+    for mod in (daemon, procstart):
+        assert "NotImplementedError" not in inspect.getsource(mod)
 
 
 def test_a_cuda_daemon_with_no_card_exits_nonzero(tmp_path):
@@ -292,3 +294,77 @@ def test_rbd_crypto_imports_without_cryptography():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "raised hidden: cryptography" in res.stdout
+
+
+MDS_AND_TOOLS = ("ceph_tpu_torch.services.mds",
+                 "ceph_tpu_torch.tools.ceph",
+                 "ceph_tpu_torch.tools.ceph_daemon",
+                 "ceph_tpu_torch.tools.crushtool",
+                 "ceph_tpu_torch.tools.dencoder",
+                 "ceph_tpu_torch.tools.exporter",
+                 "ceph_tpu_torch.tools.objectstore_tool",
+                 "ceph_tpu_torch.tools.osdmaptool",
+                 "ceph_tpu_torch.tools.rados",
+                 "ceph_tpu_torch.tools.rbd",
+                 "ceph_tpu_torch.tools.swarm")
+
+
+@pytest.mark.parametrize("module", MDS_AND_TOOLS)
+def test_mds_and_tools_module_is_the_ports_own(module):
+    """The metadata daemon and the operator CLIs are among the port's
+    modules (so the subprocess and static scans above cover them), none
+    of them names JAX or the JAX package, and each resolves to a file of
+    the port when it is imported."""
+    import importlib
+
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ceph_tpu"), name
+    mod = importlib.import_module(module)
+    assert Path(mod.__file__).resolve() == path.resolve()
+
+
+def test_cluster_clis_with_no_device_and_no_card_raise(monkeypatch, tmp_path):
+    """A CLI that builds a cluster, and crushtool's ``--device``, run on
+    the card when no device is named: with no card each raises and none
+    drops to the CPU."""
+    import asyncio
+
+    from ceph_tpu_torch.placement import crushmap as cm
+    from ceph_tpu_torch.placement import encoding as menc
+    from ceph_tpu_torch.tools import ceph, crushtool, rados, rbd, swarm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ceph.main(["status"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rados.main(["bench", "p", "1", "write"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rbd.main(["ls", "rbd"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(swarm.run_swarm(clients=1, duration=0.1))
+    m = cm.build_hierarchy(2, 2)
+    m.add_rule(cm.replicated_rule(0, failure_domain_type=1))
+    path = tmp_path / "map.bin"
+    path.write_bytes(menc.encode_crushmap(m))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crushtool.main(["--test", "-i", str(path), "--max-x", "8",
+                        "--device"])
+    # the host oracle needs no device
+    assert crushtool.main(["--test", "-i", str(path), "--max-x", "8",
+                           "--num-rep", "2"]) == 0
+
+
+def test_swarm_fabric_spawns_the_ports_own_worker():
+    """``swarm --fabric`` starts its workers as ``python -m
+    ceph_tpu_torch.tools.swarm --fabric-worker``, never the reference's
+    file, on a ProcCluster of the port."""
+    import inspect
+
+    from ceph_tpu_torch.tools import swarm
+
+    src = inspect.getsource(swarm.run_fabric)
+    assert '"-m", "ceph_tpu_torch.tools.swarm"' in src
+    assert '"--fabric-worker"' in src and "swarm.py" not in src
+    assert "from ..cluster.procstart import ProcCluster" in src

@@ -4,11 +4,10 @@ port (``ceph_tpu_torch``): a ``ProcCluster`` of daemon processes
 ``device="cpu"`` (the kernels' plain versions, torch on one thread), the
 launcher's client too. The three mon-quorum cases are in
 ``test_torch_multiprocess_mon.py``, so that ``--dist loadfile`` puts the
-two halves on two workers. The two MDS cases
+two halves on two workers, and the two MDS cases
 (``test_multiprocess_mds_kill9_replay``,
-``test_multiprocess_multimds_pin_and_cross_rename``) wait for
-``services/mds.py`` (ROADMAP §1 item 7): the port's MDS role raises. The cases
-are copied with only their imports and device changed, and the outer
+``test_multiprocess_multimds_pin_and_cross_rename``) are in
+``test_torch_multiprocess_mds.py``. The cases are copied with only their imports and device changed, and the outer
 deadline of each run cut from 480 s to 200 s (a port daemon starts in a
 few seconds, a JAX one compiles). The reference's own words follow.
 

@@ -5,7 +5,6 @@ versions). The reference's cases are copied with only their imports and
 device changed. Tolerance: exact, as in the reference.
 """
 import asyncio
-import importlib.util
 import os
 
 import torch
@@ -79,13 +78,9 @@ def test_admin_socket_dump_tracing_and_exporter(tmp_path):
                 os.path.join(sock_dir, f"osd.{i}.sock"), "dump_tracing"))
         assert any(s["name"].startswith("pg.do_op") for s in dumps)
 
-        # the standalone exporter scrapes the same sockets
-        spec = importlib.util.spec_from_file_location(
-            "exporter", os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "tools", "exporter.py"))
-        exporter = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(exporter)
+        # the port's standalone exporter scrapes the same sockets
+        from ceph_tpu_torch.tools import exporter
+
         text = await exporter.scrape(sock_dir)
         assert 'ceph_tpu_daemon_up{ceph_daemon="osd.1"} 1' in text
         assert "ceph_tpu_op" in text  # op counters made it through
