@@ -294,8 +294,13 @@ class BitmatrixCodec(ErasureCode):
 
     def resolved_backend(self) -> str:
         """Engine for the BATCHED cell APIs: "host" (the vectorized numpy
-        reference) for backend=host, else "device" (``auto`` included:
-        the port runs on the card and has no host-vs-device probe)."""
+        reference) for backend=host, "device" for backend=device, and
+        for "auto" on a CUDA device the link-economics probe
+        (ec/engine.py); "auto" on the CPU is "device"."""
+        if self.backend == "auto" and self.device.type == "cuda":
+            from . import engine
+
+            return engine.data_path_engine(self.device)
         return "host" if self.backend == "host" else "device"
 
     def encode_crc_batch(self, data, cell_bytes: int):

@@ -141,11 +141,15 @@ class CLAYCodec(ErasureCode):
 
     def resolved_backend(self) -> str:
         """Engine for the BATCHED cell APIs: routes the stacked
-        per-round MDS matmuls through the device kernels ("device",
-        the default, and "auto": the port runs on the card and has no
-        host-vs-device probe) or the multithreaded C++ host core
-        ("host"). The pairwise transforms are host table lookups
-        either way."""
+        per-round MDS matmuls through the device kernels ("device") or
+        the multithreaded C++ host core ("host"); "auto" on a CUDA
+        device follows the link-economics probe (ec/engine.py), on the
+        CPU it is "device". The pairwise transforms are host table
+        lookups either way."""
+        if self.backend == "auto" and self.device.type == "cuda":
+            from . import engine
+
+            return engine.data_path_engine(self.device)
         return "host" if self.backend == "host" else "device"
 
     def get_alignment(self) -> int:

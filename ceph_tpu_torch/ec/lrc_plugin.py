@@ -158,8 +158,13 @@ class LRCCodec(ErasureCode):
     # --------------------------------------------------- batched (device)
 
     def resolved_backend(self) -> str:
-        """"host" for backend=host, else "device" (``auto`` included: the
-        port runs on the card and has no host-vs-device probe)."""
+        """"device"/"host" as configured; "auto" on a CUDA device follows
+        the link-economics probe (ec/engine.py), on the CPU it is
+        "device"."""
+        if self.backend == "auto" and self.device.type == "cuda":
+            from . import engine
+
+            return engine.data_path_engine(self.device)
         return "host" if self.backend == "host" else "device"
 
     def encode_crc_batch(self, data, cell_bytes: int):

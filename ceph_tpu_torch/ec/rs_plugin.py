@@ -7,16 +7,17 @@ reference; cauchy_orig/cauchy_good use the same Cauchy generator matrices
 applied byte-wise (the reference runs them as bit-matrix schedule codes,
 so those shards are not wire-compatible with reference-written ones).
 
-Profile ``backend`` picks the engine (``resolved_backend``):
-- ``device`` and ``auto`` (the default): ``ops.rs.gf_matmul`` on the
-  codec's torch device -- the CUDA kernel on the card, its plain version
-  on the CPU -- for the byte API ``encode_chunks`` / ``decode_chunks`` as
-  well (the JAX package sends that to its C++ host core). ``auto`` probes
-  the host-vs-device economics in the JAX package (``ec/engine.py``); the
-  port runs on the card and does not port that probe.
+Profile ``backend`` picks the engine:
+- ``device`` and ``auto`` (the default): the byte API ``encode_chunks`` /
+  ``decode_chunks`` runs ``ops.rs.gf_matmul`` on the codec's torch device
+  -- the CUDA kernel on the card, its plain version on the CPU (the JAX
+  package sends that to its C++ host core).
 - ``host``: the byte API runs on the port's C++ host core
-  (``native.rs_matmul``), and the EC batcher encodes and decodes with
-  ``native.rs_encode`` / ``native.rs_matmul``.
+  (``native.rs_matmul``).
+The EC batcher asks ``resolved_backend``: "host" encodes and decodes with
+``native.rs_encode`` / ``native.rs_matmul``, "device" on the kernels.
+``auto`` on the card resolves through the host-vs-device probe
+(``ec/engine.py``), as in the JAX package; on the CPU it is "device".
 
 Beside the byte API is the batched API the EC backend uses:
 ``encode_batch`` / ``encode_crc_batch`` / ``decode_batch`` over (B, k, W)
@@ -147,9 +148,15 @@ class RSCodec(ErasureCode):
     # ----------------------------------------------------- byte interface
 
     def resolved_backend(self) -> str:
-        """The engine the EC batcher runs this codec on: "host" for
-        backend=host, else "device" (``auto`` included: the port runs on
-        the card and has no host-vs-device probe)."""
+        """The engine the EC batcher runs this codec on: "device"/"host"
+        as configured, or for "auto" on a CUDA device the
+        measured-economics probe (ec/engine.py — link bandwidth decides).
+        "auto" on the CPU is "device": the plain versions, as the tests
+        hold them."""
+        if self.backend == "auto" and self.device.type == "cuda":
+            from . import engine
+
+            return engine.data_path_engine(self.device)
         return "host" if self.backend == "host" else "device"
 
     def _bytes_matmul(self, matrix: np.ndarray, chunks: np.ndarray) -> np.ndarray:

@@ -89,7 +89,8 @@ def gf2_apply_plain(plan: np.ndarray, rows: torch.Tensor) -> torch.Tensor:
     plan = _check(plan, rows)
     zero = rows.new_zeros(rows.shape[:-2] + (1, rows.shape[-1]))
     ext = torch.cat([rows, zero], dim=-2)
-    idx = torch.from_numpy(plan.reshape(-1).astype(np.int64)).to(rows.device)
+    idx = torch.from_numpy(np.ascontiguousarray(plan.reshape(-1),
+                                                dtype=np.int32)).to(rows.device)
     gathered = ext.index_select(-2, idx).reshape(
         rows.shape[:-2] + plan.shape + (rows.shape[-1],))
     acc = gathered[..., 0, :]

@@ -286,7 +286,7 @@ def _straw2_choose_rows(arrays, bno, x, r):
     items, weights, sizes = arrays
     its = items[bno]  # (N, MI)
     draws = crush_ops.straw2_draw(x[:, None], its, r[:, None], weights[bno])
-    slot = torch.arange(its.shape[1], device=x.device)
+    slot = torch.arange(its.shape[1], dtype=torch.int64, device=x.device)
     draws = torch.where(slot[None, :] < sizes[bno][:, None], draws,
                         crush_ops.INT64_MIN)
     top = draws.max(dim=1, keepdim=True).values
@@ -348,7 +348,8 @@ def _leaf_attempts(arrays, btype, max_depth, dev_weights, rule, R,
     collision-checks the leaf against out2[0..outpos-1] (it passes out2
     as the recursion's out vector)."""
     base = _sub_r(rule, r) if rule.stable else pos + _sub_r(rule, r)
-    slot_valid = torch.arange(R, device=x.device)[None, :] < pos[:, None]
+    slot_valid = torch.arange(R, dtype=torch.int64,
+                              device=x.device)[None, :] < pos[:, None]
     host_bno = (-1 - host_item.long()).clamp(0, btype.shape[0] - 1)
     leaf = torch.full_like(host_item, ITEM_NONE)
     pending = active & (host_item < 0)
@@ -379,7 +380,7 @@ def _choose_firstn_vec(arrays, btype, max_depth, dev_weights, rule, R,
     pos = torch.zeros(n, dtype=torch.int64, device=dev)
     rep = torch.zeros(n, dtype=torch.int64, device=dev)
     ftotal = torch.zeros(n, dtype=torch.int64, device=dev)
-    cols = torch.arange(R, device=dev)[None, :]
+    cols = torch.arange(R, dtype=torch.int64, device=dev)[None, :]
     while True:
         active = (rep < R) & (pos < R)
         if not bool(active.any()):

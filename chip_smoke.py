@@ -81,6 +81,20 @@ with the repair's helper bytes beside an RS decode's; LRC k=4, m=2, l=3 at
 against ``repair_cells_host``) and 64 liber8tion writes of 128 stripes
 (exact against the host engine and the C++ core's CRC32C).
 
+Phase ``corpus`` (after ``codecs``) replays the golden EC corpus
+(``tests/corpus/ec_corpus.json``: 20 configs of rs_tpu, LRC, SHEC and
+Clay at objects of 31, 4,096 and 65,537 bytes) through the codecs' byte
+API on the card with ``gen_ec_corpus --check``: once as the corpus pins
+each profile and once more with ``backend=device`` (SHEC runs on the host
+only), zero drift in both, K1 launched. Then the EC engine probe
+(``ec/engine.py``) times the fused write dispatch (pageable HtoD of 4 MiB,
+K1 + K2, DtoH of parity and CRCs) against the C++ core and prints its
+verdict: what ``backend=auto`` users get on this machine (the deployment
+phases pin ``CEPH_TPU_EC_ENGINE=device``, so each of them launches K1 and
+K2 whatever the verdict). K1 and K2 are timed at the probe's batch and K1
+at the corpus's largest byte-API shape; last, the port's tpulint runs over
+``ceph_tpu_torch`` with no unbaselined finding.
+
 Phase ``msg`` drives the cluster wire with an EC pool's traffic: one
 ECBatcher at the OSD's defaults over jerasure reed_sol_van k=8, m=3 on the
 card encodes 256 objects of 4 MiB (K1 parity, K2 cell CRCs); for each the
@@ -2335,6 +2349,134 @@ def codecs_phase(dev, rng) -> dict:
         check(launches[key] > 0, f"the codec paths launched {key} "
                                  f"{launches[key]} times")
     return {"launches": launches, "edge_err": edge_err, "timed": timed,
+            "seconds": seconds}
+
+
+#: The corpus phase: the golden corpus's largest byte-API shape (rs_tpu 8+4
+#: at 65,537 bytes: one stripe of 8,224-byte chunks), and the probe's
+#: codec (k=8, m=2, reed_sol_van, 64 stripes of 8 KiB cells: 4 MiB).
+CP_CORPUS_PROFILE = {"plugin": "rs_tpu", "k": "8", "m": "4",
+                     "backend": "device"}
+CP_CORPUS_BYTES = 65537
+CP_PROBE_PROFILE = {"plugin": "rs_tpu", "k": "8", "m": "2"}
+#: The phase's budget: it must stay cheap in a script near 900 s.
+CP_BUDGET_S = 30.0
+
+
+def corpus_phase(card: str, rng, device=None) -> dict:
+    """The golden corpus, the engine probe and the port's lint on the card
+    (see the module docstring; ``device`` None: the card, as a user
+    leaves it out): ``gen_ec_corpus --check`` through its ``main`` (both
+    arms, gated on zero drift), then
+    ``engine._probe`` after ``engine.reset_probe()``, with every count set
+    to 0 just before the corpus and read after each part; then K1 and K2
+    timed at the probe's batch and K1 at the corpus's largest byte-API
+    shape, each against its plain version; then ``tpulint --json
+    --no-baseline`` over ``ceph_tpu_torch`` through its ``main``, its
+    findings counted by rule and gated on none outside the baseline. Returns the launches by part and in all, the timed entries
+    and the seconds of each part."""
+    from collections import Counter
+
+    from ceph_tpu_torch import analysis, kernels
+    from ceph_tpu_torch.ec import engine, load_codec
+    from ceph_tpu_torch.device import resolve, words_to_tensor
+    from ceph_tpu_torch.ops import rs
+    from ceph_tpu_torch.tools import gen_ec_corpus, tpulint
+
+    dev = resolve(device)
+
+    def counts() -> dict:
+        return {k.name: k.launches for k in kernels.KERNELS}
+
+    seconds = {}
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    rc, out = tl_run(gen_ec_corpus, ["--check", *tl_device(device)])
+    by_part = {"corpus": counts()}
+    lines = out.splitlines()
+    drift = [ln for ln in lines if ln.startswith("DRIFT")]
+    for ln in drift:
+        print(ln, flush=True)
+    n_device = sum(p["plugin"] in gen_ec_corpus.DEVICE_PLUGINS
+                   for p in gen_ec_corpus.MATRIX)
+    check(rc == 0 and not drift, f"corpus --check: rc {rc}, "
+                                 f"{len(drift)} drift lines")
+    check(by_part["corpus"]["gf_matmul"] > 0,
+          f"the corpus launched gf_matmul "
+          f"{by_part['corpus']['gf_matmul']} times")
+    seconds["corpus"] = time.perf_counter() - t0
+    emit({"phase": "corpus", "step": "corpus",
+          "configs": len(gen_ec_corpus.MATRIX),
+          "sizes": list(gen_ec_corpus.SIZES),
+          "pinned_arm": len(gen_ec_corpus.MATRIX),
+          "device_arm": n_device,
+          "host_only": [gen_ec_corpus.profile_key(p)
+                        for p in gen_ec_corpus.MATRIX
+                        if p["plugin"] not in gen_ec_corpus.DEVICE_PLUGINS],
+          "drift": len(drift), "summary": lines[-1],
+          "launches": by_part["corpus"], "seconds": seconds["corpus"]})
+
+    t0 = time.perf_counter()
+    engine.reset_probe()
+    engine.last_probe.clear()
+    before = counts()
+    verdict = engine._probe(device)
+    by_part["probe"] = {k: v - before[k] for k, v in counts().items()}
+    launches = counts()
+    check(all(by_part["probe"][k] > 0 for k in ("gf_matmul", "crc32c")),
+          f"the probe launched {by_part['probe']}")
+    seconds["probe"] = time.perf_counter() - t0
+    emit({"phase": "corpus", "step": "probe", "verdict": verdict,
+          **engine.last_probe, "auto_resolves_to": verdict,
+          "nvidia_smi": card, "launches": by_part["probe"],
+          "seconds": seconds["probe"]})
+    engine.reset_probe()
+
+    # K1 + K2 of the probe's dispatch with the batch on the card, then each
+    # kernel alone at the probe's and the corpus's shapes
+    t0 = time.perf_counter()
+    probe = load_codec(CP_PROBE_PROFILE, device=dev)
+    cell_bytes = engine._PROBE_WORDS * 4
+    x = words_to_tensor(rng.integers(
+        0, 2**32, (engine._PROBE_B, engine._PROBE_K, engine._PROBE_WORDS),
+        dtype=np.uint32), dev)
+
+    def fused():
+        return rs.encode_with_crcs(probe.matrix, cell_bytes, x)
+
+    ms = time_ms(fused, reps=50)
+    prof = profile_steps(fused, reps=20, pads=BT_PADS)
+    emit({"phase": "time", "what": "probe_fused", "ms": ms,
+          "device_ms": device_ms(prof), "idle_share": prof["idle_share"],
+          "profile": {k: prof[k] for k in PROFILE_CLOCK}})
+    del x
+    timed = batch_times(dev, rng, probe, engine._PROBE_B, cell_bytes,
+                        "probe", cases=("write", "crc"))
+    big = load_codec(CP_CORPUS_PROFILE, device=dev)
+    timed.update(batch_times(dev, rng, big, 1,
+                             big.get_chunk_size(CP_CORPUS_BYTES), "corpus",
+                             cases=("write",)))
+    seconds["times"] = time.perf_counter() - t0
+
+    # every finding, baselined or not, then the gate against the baseline
+    t0 = time.perf_counter()
+    rc, out = tl_run(tpulint, ["--json", "--no-baseline"])
+    found = [analysis.Finding(**f) for f in json.loads(out)]
+    new = analysis.unbaselined(
+        found, analysis.load_baseline(tpulint.DEFAULT_BASELINE))
+    check(rc == (1 if found else 0) and not new,
+          f"tpulint: rc {rc}, unbaselined {[f.render() for f in new]}")
+    seconds["lint"] = time.perf_counter() - t0
+    emit({"phase": "corpus", "step": "lint",
+          "findings": len(found), "unbaselined": len(new),
+          "by_rule": dict(sorted(Counter(f.rule for f in found).items())),
+          "rules": len(analysis.instance().names()),
+          "seconds": seconds["lint"]})
+    seconds["total"] = sum(seconds.values())
+    emit({"phase": "corpus_seconds", **seconds, "budget_s": CP_BUDGET_S,
+          "over_budget": seconds["total"] > CP_BUDGET_S})
+    return {"launches": launches, "by_part": by_part, "timed": timed,
+            "verdict": verdict, "probe": dict(engine.last_probe),
             "seconds": seconds}
 
 
@@ -6313,6 +6455,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # The deployments (the EC batchers of phase ecbatch on, and the OSD
+    # daemons of phase proc, which inherit it) run their codecs' "auto"
+    # backend on the device engine, whatever phase corpus's probe picks:
+    # each of them gates on K1/K2 launches in every step.
+    os.environ["CEPH_TPU_EC_ENGINE"] = "device"
 
     from ceph_tpu_torch import kernels
     from ceph_tpu_torch.checksum import Checksummer
@@ -6570,6 +6717,13 @@ def main() -> int:
     timed.update(cd["timed"])
     seconds["codecs"] = time.perf_counter() - t0
 
+    # ---- phase 10b: the golden EC corpus replayed through the codecs on
+    # the card (both arms), the engine probe's verdict, the port's lint
+    t0 = time.perf_counter()
+    cp = corpus_phase(smi.splitlines()[0], rng)
+    timed.update(cp["timed"])
+    seconds["corpus"] = time.perf_counter() - t0
+
     # ---- phase 11: the cluster wire carrying the EC fan-out (K1 and K2
     # through the ECBatcher) over LocalBus, TCP, signed TCP and shm
     t0 = time.perf_counter()
@@ -6677,6 +6831,7 @@ def main() -> int:
         if name == "crc32c":
             paths["store"] = st["launches"]
         paths["codecs"] = cd["launches"][name]
+        paths["corpus"] = cp["launches"][name]
         paths["msg"] = wire["launches"][name]
         paths["cluster"] = cl["launches"][name]
         paths["services"] = sv["launches"][name]
@@ -6694,6 +6849,8 @@ def main() -> int:
     ec_crc = [*(f"crc_{t}_write" for t in CL_TIMED),
               *(k for k in (*sv_timed, *md_timed, *tl["timed"])
                 if k.startswith("crc_"))]
+    cp_gf = [k for k in cp["timed"] if k.startswith("gf_")]
+    cp_crc = [k for k in cp["timed"] if k.startswith("crc_")]
     table = [
         {"name": "gf_matmul", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_matmul.cu",
@@ -6706,13 +6863,14 @@ def main() -> int:
                             timed["gf_lrc_encode"]["max_abs_err"],
                             timed["gf_clay_round"]["max_abs_err"],
                             *(timed[k]["max_abs_err"] for k in ec_gf),
+                            *(timed[k]["max_abs_err"] for k in cp_gf),
                             timed["gf_mesh_repair"]["max_abs_err"],
                             timed["gf_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("gf_matmul"),
          "shapes": shapes("gf_write", "gf_repair", "gf_batch_write",
                           "gf_batch_decode", "gf_lrc_encode",
                           "gf_clay_round",
-                          *ec_gf,
+                          *ec_gf, *cp_gf,
                           "gf_mesh_repair", "gf_mesh_write")},
         {"name": "crc32c", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c.cu",
@@ -6726,12 +6884,13 @@ def main() -> int:
                             *(timed[f"crc_store_{k}"]["max_abs_err"]
                               for k in ST_SHAPES),
                             *(timed[k]["max_abs_err"] for k in ec_crc),
+                            *(timed[k]["max_abs_err"] for k in cp_crc),
                             timed["crc_mesh_write"]["max_abs_err"]),
          "library_ms": None, "launches_by_path": by_path("crc32c"),
          "shapes": shapes("crc_write", "crc_repair", "crc_checksummer",
                           "crc_batch_write", "crc_lrc_encode",
                           *(f"crc_store_{k}" for k in ST_SHAPES),
-                          *ec_crc,
+                          *ec_crc, *cp_crc,
                           "crc_mesh_write")},
         {"name": "straw2", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/straw2.cu",

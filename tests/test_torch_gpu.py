@@ -30,6 +30,36 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def device_engine(monkeypatch):
+    """The batcher and cluster tests count K1/K2 launches: pin the codecs'
+    ``backend=auto`` to the device engine, as chip_smoke.py pins its
+    deployments, so the engine probe neither runs inside a count nor
+    sends a batch to the host."""
+    from ceph_tpu_torch.ec import engine
+
+    monkeypatch.setenv("CEPH_TPU_EC_ENGINE", "device")
+    engine.reset_probe()
+    yield
+    engine.reset_probe()
+
+
+def test_engine_probe_on_the_card(cuda):
+    """The probe's device arm on the card: one warm-up and two timed runs
+    of the fused write dispatch (K1 + K2 each), both engines' seconds in
+    ``last_probe``, and the verdict the faster engine."""
+    from ceph_tpu_torch.ec import engine
+
+    gf0, crc0 = kernels.GF_MATMUL.launches, kernels.CRC32C.launches
+    verdict = engine._probe(cuda)
+    assert kernels.GF_MATMUL.launches == gf0 + 3
+    assert kernels.CRC32C.launches == crc0 + 3
+    p = engine.last_probe
+    assert p["probe_data_bytes"] == 4 << 20
+    assert p["device_s"] > 0 and p["host_s"] > 0
+    assert verdict == ("device" if p["device_s"] < p["host_s"] else "host")
+
+
 def _words(rng, shape, dev):
     return words_to_tensor(rng.integers(0, 2**32, shape, dtype=np.uint32), dev)
 

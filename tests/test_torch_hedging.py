@@ -477,12 +477,11 @@ def test_cold_shape_shield_promotes_after_volume():
     assert fresh.calls == ["device"]
 
 
-# ------------------------------- the reference's lint rules on the port
+# ----------------------------------- the hedge lint rules on the port
 #
-# tpulint (``ceph_tpu/analysis``) lints only the JAX package; its own
-# tests hold the rules' fixtures. Here the two hedge rules read the
-# port's copies of the cluster tier under the reference's paths, and
-# must find exactly what they find in the reference's files.
+# The port's tpulint (``ceph_tpu_torch/analysis``) reads the port's copies
+# of the cluster tier at their own paths; the JAX package's reads the
+# reference's files. The two hedge rules must find the same in both.
 
 HEDGE_RULE_FILES = ("pg.py", "osd.py", "client.py", "hedge.py",
                     "ecbatch.py")
@@ -491,15 +490,16 @@ HEDGE_RULE_FILES = ("pg.py", "osd.py", "client.py", "hedge.py",
 def lint_twins(name: str, rule: str):
     from pathlib import Path
 
-    from ceph_tpu import analysis
+    from ceph_tpu import analysis as ref_analysis
+    from ceph_tpu_torch import analysis
 
     root = Path(__file__).resolve().parent.parent
-    path = f"ceph_tpu/cluster/{name}"
-    got = analysis.lint_source(
-        (root / "ceph_tpu_torch" / "cluster" / name).read_text(), path,
-        only=[rule])
-    want = analysis.lint_source((root / path).read_text(), path,
-                                only=[rule])
+    path = f"ceph_tpu_torch/cluster/{name}"
+    ref_path = f"ceph_tpu/cluster/{name}"
+    got = analysis.lint_source((root / path).read_text(), path,
+                               only=[rule])
+    want = ref_analysis.lint_source((root / ref_path).read_text(),
+                                    ref_path, only=[rule])
     return ([(f.rule, f.message) for f in got],
             [(f.rule, f.message) for f in want])
 
@@ -519,18 +519,18 @@ def test_hedge_task_rule_finds_on_the_port_what_it_finds_in_the_reference(
 
 
 def test_hedge_fanout_rule_flags_a_gather_over_reply_waits_in_the_port_pg():
-    """The rule is live on the port's text: a gather over reply waits
-    appended to the port's pg.py is flagged."""
+    """The port's rule is live on the port's text: a gather over reply
+    waits appended to the port's pg.py is flagged."""
     from pathlib import Path
 
-    from ceph_tpu import analysis
+    from ceph_tpu_torch import analysis
 
     root = Path(__file__).resolve().parent.parent
     src = (root / "ceph_tpu_torch" / "cluster" / "pg.py").read_text() + (
         "\n\nasync def read_shards(osd, waits):\n"
         "    return await asyncio.gather(\n"
         "        *(osd.await_reply(t, f, o) for t, f, o in waits))\n")
-    fs = analysis.lint_source(src, "ceph_tpu/cluster/pg.py",
+    fs = analysis.lint_source(src, "ceph_tpu_torch/cluster/pg.py",
                               only=["hedge-fanout-discipline"])
     assert any("hedged_fanout" in f.message for f in fs)
 

@@ -368,3 +368,46 @@ def test_swarm_fabric_spawns_the_ports_own_worker():
     assert '"-m", "ceph_tpu_torch.tools.swarm"' in src
     assert '"--fabric-worker"' in src and "swarm.py" not in src
     assert "from ..cluster.procstart import ProcCluster" in src
+
+
+HOST_TOOLING = ("ceph_tpu_torch.analysis", "ceph_tpu_torch.analysis.core",
+                "ceph_tpu_torch.analysis.baseline",
+                *(f"ceph_tpu_torch.analysis.rules_{f}" for f in (
+                    "buffer", "dispatch", "dtype", "fabric", "hedge", "lock",
+                    "mesh", "pipeline", "trace", "wire")),
+                "ceph_tpu_torch.ec.engine", "ceph_tpu_torch.tools.tpulint",
+                "ceph_tpu_torch.tools.gen_ec_corpus")
+
+
+@pytest.mark.parametrize("module", HOST_TOOLING)
+def test_analyzer_probe_and_corpus_modules_are_the_ports_own(module):
+    """tpulint's 13 modules and CLI, the engine probe and the corpus
+    generator are among the port's (so the subprocess and static scans
+    above cover them), and none of them names JAX or the JAX package."""
+    assert module in _port_modules()
+    rel = module.replace(".", "/")
+    path = ROOT / (rel + ".py")
+    if not path.exists():
+        path = ROOT / rel / "__init__.py"
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ceph_tpu"), name
+
+
+def test_probe_and_corpus_with_no_device_and_no_card_raise(monkeypatch):
+    """With no card and no CEPH_TPU_EC_ENGINE the probe raises (it never
+    answers "host" in the card's place), and so does the corpus
+    generator's check; the lint needs no device."""
+    from ceph_tpu_torch.ec import engine
+    from ceph_tpu_torch.tools import gen_ec_corpus, tpulint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CEPH_TPU_EC_ENGINE", raising=False)
+    engine.reset_probe()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine.data_path_engine()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gen_ec_corpus.main(["--check"])
+    finally:
+        engine.reset_probe()
+    assert tpulint.main(["--list-rules"]) == 0
